@@ -1,0 +1,105 @@
+"""On the card: each CUDA kernel against its plain PyTorch version, and the
+slice on the card against the slice on the CPU.
+
+Every test here needs a CUDA card and skips without one (marker
+``torch``). The file imports no ``jax``, so it runs where only PyTorch is
+installed: ``python -m pytest -q -m torch tests/test_torch_*.py``.
+Tolerance: bitwise equality; the kernels repeat the plain versions'
+integer and float32 compare/select/min arithmetic exactly.
+"""
+import numpy as np
+import pytest
+import torch
+from torch_parity import assert_same, bits_equal, cuda_device  # noqa: F401
+
+from repro_torch.core.maxflow.grid import (INF_H, GridProblem,
+                                           maxflow_grid_batch)
+from repro_torch.core.maxflow.ref import (checkerboard_problem,
+                                          random_grid_problem)
+from repro_torch.kernels.bfs_relabel import kernel as bk
+from repro_torch.kernels.bfs_relabel.ref import bfs_relabel_sweeps_ref
+from repro_torch.kernels.grid_push import kernel as gk
+from repro_torch.kernels.grid_push.ops import tile_schedule, tile_shape
+from repro_torch.kernels.grid_push.ref import (grid_push_decide_ref,
+                                               grid_push_decide_sched_ref)
+
+pytestmark = pytest.mark.torch
+
+
+def _stack(probs):
+    return (np.stack([p[0] for p in probs], axis=1),
+            np.stack([p[1] for p in probs]), np.stack([p[2] for p in probs]))
+
+
+def _inputs(dev, B=2, H=192, W=160, seed=0):
+    """Random decision inputs: integer caps with zeros, half the nodes
+    active, heights over [0, 2N) with a few INF."""
+    rng = np.random.default_rng(seed)
+    cap, cs, ct = _stack([random_grid_problem(rng, H, W) for _ in range(B)])
+    n = H * W + 2
+    e = rng.integers(0, 9, (B, H, W)) * (rng.random((B, H, W)) < 0.5)
+    h = rng.integers(0, 2 * n, (B, H, W))
+    h[0, 0, :5] = INF_H
+    t = lambda a, dt: torch.tensor(a, dtype=dt, device=dev)  # noqa: E731
+    return (t(e, torch.float32), t(h, torch.int32), t(cap, torch.float32),
+            t(cs, torch.float32), t(ct, torch.float32), n)
+
+
+def test_k1_kernel_equals_plain(cuda_device):
+    args = _inputs(cuda_device)
+    before = gk.grid_push_decide.launches
+    got = gk.grid_push_decide(*args)
+    torch.cuda.synchronize()
+    assert gk.grid_push_decide.launches == before + 1
+    want = grid_push_decide_ref(*args)
+    assert all(bits_equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("H,W", [(256, 200), (100, 128)])
+def test_k2_kernel_equals_plain(cuda_device, H, W):
+    e, h, cap, cs, ct, n = _inputs(cuda_device, H=H, W=W)
+    e[:, :64] = 0                      # idle tiles
+    bh, bw = tile_shape(H, W)
+    sched, nact = tile_schedule(e > 0, bh, bw)
+    args = (e, h, cap, cs, ct, sched, nact, n)
+    before = gk.grid_push_decide_sched.launches
+    got = gk.grid_push_decide_sched(*args, block_h=bh, block_w=bw)
+    torch.cuda.synchronize()
+    assert gk.grid_push_decide_sched.launches == before + 1
+    want = grid_push_decide_sched_ref(*args, bh, bw)
+    assert all(bits_equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("sweeps,with_ds", [(8, True), (3, False), (1, True)])
+def test_k3_kernel_equals_plain(cuda_device, sweeps, with_ds):
+    B, H, W = 2, 200, 136
+    rng = np.random.default_rng(1)
+    cap, cs, ct = _stack([random_grid_problem(rng, H, W) for _ in range(B)])
+    n = H * W + 2
+    t = lambda a: torch.tensor(a, device=cuda_device)  # noqa: E731
+    cap = t(cap)
+    seed_t = t(np.where(ct > 0, 1, INF_H).astype(np.int32))
+    seed_s = t(np.where(cs > 0, n + 1, INF_H).astype(np.int32))
+    if not with_ds:
+        seed_s = None
+    args = (cap, seed_t, seed_s, seed_t, seed_s)
+    before = bk.bfs_relabel_sweeps.launches
+    got = bk.bfs_relabel_sweeps(*args, sweeps=sweeps)
+    torch.cuda.synchronize()
+    assert bk.bfs_relabel_sweeps.launches == before + sweeps
+    want = bfs_relabel_sweeps_ref(*args, sweeps=sweeps)
+    for g, w in zip(got, want):
+        assert (g is None and w is None) or bits_equal(g, w)
+
+
+@pytest.mark.parametrize("backend", ["xla", "multipush", "pallas",
+                                     "balanced"])
+def test_slice_on_card_equals_cpu(cuda_device, backend):
+    rng = np.random.default_rng(2)
+    probs = [random_grid_problem(rng, 64, 64) for _ in range(2)]
+    probs.append(checkerboard_problem(64, 64))
+    prob = GridProblem(*(np.stack([p[k] for p in probs]) for k in range(3)))
+    got = maxflow_grid_batch(prob, backend=backend, device=cuda_device)
+    want = maxflow_grid_batch(prob, backend=backend, device="cpu")
+    assert_same(got, want)
+    assert bool(got.converged.all())
