@@ -6,21 +6,31 @@ Drives ``src/repro_torch`` only (no ``jax``, nothing of ``repro``):
 
 1. builds every kernel from ``src/repro_torch/kernels/csrc`` (one ``nvcc``
    per source, all at once) and prints the card's name and power limit;
-2. holds each kernel (K1 ``grid_push_decide``, K2
-   ``grid_push_decide_sched``, K3 ``bfs_relabel_sweeps``) to its plain
-   PyTorch version on random inputs at the main path's shapes
-   (4 x 512^2), bit for bit, and times both with CUDA events;
-3. drives the main path, ``maxflow_grid_batch`` on 4 seeded
+2. holds each kernel to its plain PyTorch version, bit for bit, and times
+   both (``torch.profiler`` device time over 50 calls): K1
+   ``grid_push_decide``, K2 ``grid_push_decide_sched`` and K3
+   ``bfs_relabel_sweeps`` at the grid path's shapes (4 x 512^2), K4
+   ``bidding`` at the assignment path's (8 x 512^2, with ``torch.topk``
+   as its one-call yardstick) and K5 ``frontier`` at the matching path's
+   (4 x 4096^2, with ``torch.min`` over a packed key as its yardstick);
+3. drives the grid path, ``maxflow_grid_batch`` on 4 seeded
    ``random_grid_problem`` instances of 512 x 512, with ``backend="pallas"``
    and ``backend="xla"``: both converge, match the scipy oracle, satisfy
    ``check_no_violations`` and agree on every leaf;
 4. drives ``backend="balanced"`` on the same batch (oracle flows) and on
    ``checkerboard_problem(256, 256)`` (flow 256, 448 rounds, 12
    heuristics: the JAX package's counts);
-5. reads the launch counts of each of the four solves of phases 3 and 4
-   (``pallas``, ``xla``, balanced batch, balanced checkerboard; each set
-   to 0 just before its solve and read just after) and fails if a kernel
-   of that solve was never launched.
+5. drives the assignment path, ``solve_assignment`` on 8 x 512^2 seeded
+   weights in [0, 100], for ``method="auction"`` and ``"pushrelabel"``
+   on ``backend="pallas"`` and ``"xla"``: scipy's optimal weights, the
+   JAX package's rounds, the backends equal on every leaf;
+6. drives the matching path, ``match_bipartite_batch`` on 4 seeded
+   4096 x 4096 graphs at p = 4/n on both backends: Hopcroft-Karp's
+   cardinalities, the JAX package's phases, the backends equal;
+7. reads the launch counts of every solve of phases 3 to 6 (each set to 0
+   just before its solve and read just after) and fails if a kernel of
+   that solve was never launched, or if K4 or K5 was launched by an
+   ``xla`` solve.
 
 Prints one JSON line per kernel summary, the ``nvidia-smi`` name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero
@@ -47,6 +57,17 @@ SEED = 0
 # package's (flow, rounds, heuristics) on it
 CHECKERBOARD = (256, 256)
 CHECKERBOARD_WANT = (256.0, 448, 12)
+# cost-scaling assignment: B x n x n weights in [0, 100] (the paper's cost
+# range, section 6), and matching: B Erdos-Renyi n x n graphs at p = 4 / n
+ASSIGN_B, ASSIGN_N = 8, 512
+MATCH_B, MATCH_N = 4, 4096
+# the JAX package's rounds (assignment, per method) and phases (matching)
+# per instance on those batches, from a CPU run of
+# `PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_smoke_constants.py`
+ASSIGN_ROUNDS_WANT = {
+    "auction": (320, 384, 352, 368, 336, 384, 368, 352),
+    "pushrelabel": (720, 816, 752, 752, 800, 800, 800, 784)}
+MATCH_ROUNDS_WANT = (8, 10, 8, 7)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 FP32_OPS_PER_S = 67e12         # H100 SXM non-tensor 32-bit rate (data sheet)
 KERNEL_SOURCES = {
@@ -56,11 +77,22 @@ KERNEL_SOURCES = {
                                "src/repro/kernels/grid_push/kernel.py:167"),
     "bfs_relabel_sweeps": ("src/repro_torch/kernels/csrc/bfs_relabel.cu",
                            "src/repro/kernels/bfs_relabel/kernel.py:94"),
+    "bidding": ("src/repro_torch/kernels/csrc/bidding.cu",
+                "src/repro/kernels/bidding/kernel.py:67"),
+    "frontier": ("src/repro_torch/kernels/csrc/frontier.cu",
+                 "src/repro/kernels/frontier/kernel.py:71"),
 }
 
 
 def log(*a):
     print(*a, file=sys.stderr, flush=True)
+
+
+# what the port's kernels are called in a profile (csrc/*.cu)
+PORT_KERNEL_SYMBOLS = tuple(
+    f"{p}(anonymous namespace)::{k}" for p in ("", "void ")
+    for k in ("grid_push_decide", "bfs_relabel_sweep", "bidding_kernel",
+              "frontier_"))
 
 
 def device_events(prof):
@@ -151,6 +183,20 @@ def random_state(rng, dev):
             t(cs, torch.float32), t(ct, torch.float32), n_nodes)
 
 
+def assignment_weights() -> np.ndarray:
+    """The assignment phase's ``(ASSIGN_B, n, n)`` int64 weights."""
+    return np.random.default_rng(SEED).integers(
+        0, 101, size=(ASSIGN_B, ASSIGN_N, ASSIGN_N))
+
+
+def matching_adjacency() -> np.ndarray:
+    """The matching phase's ``(MATCH_B, n, n)`` bool adjacencies."""
+    from repro_torch.core.matching.ref import random_bipartite
+    rng = np.random.default_rng(SEED)
+    return np.stack([random_bipartite(rng, MATCH_N, MATCH_N, 4 / MATCH_N)
+                     for _ in range(MATCH_B)])
+
+
 def phase_kernels(dev, card: str) -> dict:
     """Each kernel against its plain version, bitwise, with timings."""
     from repro_torch.core.maxflow.grid import INF_H
@@ -219,11 +265,75 @@ def phase_kernels(dev, card: str) -> dict:
         sweeps_per_call=SWEEPS,
         **timings(lambda: bfs_relabel_sweeps(*args3),
                   lambda: bfs_relabel_sweeps_ref(*args3, sweeps=SWEEPS)))
+    for row in out.values():
+        row["library_ms"] = None   # no single PyTorch call computes K1-K3
+    out.update(kernels_assignment_matching(dev))
     for name, row in out.items():
+        lib = row["library_ms"]
         log(f"[kernels] {name}: equal to plain, device {row['ms']:.4f} ms "
             f"(loop {row['loop_ms']:.4f} ms; plain device "
             f"{row['plain_ms']:.4f} ms, loop {row['plain_loop_ms']:.4f} ms; "
+            f"library {'none' if lib is None else f'{lib:.4f} ms'}; "
             f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}) on {card}")
+    return out
+
+
+def kernels_assignment_matching(dev) -> dict:
+    """K4 and K5 against their plain versions at the assignment and
+    matching phases' shapes, bitwise, with timings and the one-call
+    PyTorch yardstick of each (``library_ms``, timed only)."""
+    from repro_torch.kernels.bidding.kernel import bidding
+    from repro_torch.kernels.bidding.ref import INF, bidding_ref
+    from repro_torch.kernels.frontier.kernel import frontier
+    from repro_torch.kernels.frontier.ref import frontier_ref
+    rng = np.random.default_rng(SEED + 1)
+    t = lambda a, dt: torch.tensor(a, dtype=dt, device=dev)  # noqa: E731
+    out = {}
+
+    # K4 on the assignment phase's scaled costs, random prices, a fifth of
+    # the arcs masked (fixed or matched) and every 64th row fully masked
+    B, n = ASSIGN_B, ASSIGN_N
+    c = t(-(n + 1) * assignment_weights(), torch.int32)
+    p_y = t(rng.integers(-(n + 1) * 100, 1, (B, n)), torch.int32)
+    m = rng.random((B, n, n)) < 0.2
+    m[:, ::64] = True
+    mask = t(m, torch.bool)
+    args = (c, p_y, mask)
+    err = compare(bidding(*args), bidding_ref(*args), "K4")
+    masked = torch.where(mask, INF, c - p_y[:, None, :])
+    # c and mask read once (5 B per entry), p_y read and 3 outputs written
+    # (16 B per row); about 4 integer ops per entry
+    b_ms, b_by = bound(5 * B * n * n + 16 * B * n, 4 * B * n * n)
+    out["bidding"] = dict(
+        max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(lambda: torch.topk(masked, 2, dim=-1,
+                                              largest=False))[0],
+        **timings(lambda: bidding(*args), lambda: bidding_ref(*args)))
+
+    # K5 on the matching phase's graphs, half the rows labeled with roots
+    # drawn from the rows, random matched columns
+    B, n = MATCH_B, MATCH_N
+    adj = t(matching_adjacency(), torch.bool)
+    labeled = rng.random((B, n)) < 0.5
+    root = t(np.where(labeled, rng.integers(0, n, (B, n)), INF), torch.int32)
+    match = t(rng.integers(-1, n, (B, n)), torch.int32)
+    args5 = (adj, root, match)
+    err = compare(frontier(*args5), frontier_ref(*args5), "K5")
+    rows = torch.arange(n, device=dev, dtype=torch.int64)
+    cand = (adj & (root < INF)[..., None]
+            & (match[..., None] != torch.arange(n, device=dev)))
+    key = torch.where(cand, (root.to(torch.int64)[..., None] << 32)
+                      | rows[:, None], torch.iinfo(torch.int64).max)
+    # only a labeled row's adjacency is needed (1 B per entry); both row
+    # labels read (8 B per row), both outputs written (8 B per column);
+    # about 4 ops per entry read
+    need = int(labeled.sum()) * n
+    b_ms, b_by = bound(need + 8 * B * n + 8 * B * n, 4 * need)
+    out["frontier"] = dict(
+        max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+        labeled_rows=int(labeled.sum()), rows=B * n,
+        library_ms=time_ms(lambda: torch.min(key, dim=-2))[0],
+        **timings(lambda: frontier(*args5), lambda: frontier_ref(*args5)))
     return out
 
 
@@ -238,10 +348,12 @@ def timings(kernel, plain) -> dict:
 
 def counters():
     from repro_torch.kernels.bfs_relabel.kernel import bfs_relabel_sweeps
+    from repro_torch.kernels.bidding.kernel import bidding
+    from repro_torch.kernels.frontier.kernel import frontier
     from repro_torch.kernels.grid_push.kernel import (grid_push_decide,
                                                       grid_push_decide_sched)
     return {f.__name__: f for f in (grid_push_decide, grid_push_decide_sched,
-                                    bfs_relabel_sweeps)}
+                                    bfs_relabel_sweeps, bidding, frontier)}
 
 
 def reset_counts():
@@ -259,6 +371,24 @@ def require_launched(counts: dict, names, phase: str):
             raise AssertionError(f"{phase}: {name} was never launched")
 
 
+def require_not_launched(counts: dict, names, phase: str):
+    for name in names:
+        if counts[name] != 0:
+            raise AssertionError(f"{phase}: {name} was launched "
+                                 f"{counts[name]} times")
+
+
+def require_same(a: dict, b: dict, what: str):
+    """Every leaf of two ``to_numpy`` results equal, dtypes included
+    (nested dicts too)."""
+    for key, v in a.items():
+        if isinstance(v, dict):
+            require_same(v, b[key], f"{what}.{key}")
+        elif (v is None) != (b[key] is None) or (v is not None and (
+                v.dtype != b[key].dtype or not np.array_equal(v, b[key]))):
+            raise AssertionError(f"{what}: results differ in {key}")
+
+
 def solve(fn, *a, **kw):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -269,9 +399,10 @@ def solve(fn, *a, **kw):
 
 def profile(what: str, wall: float, fn, *a, **kw):
     """One more run of ``fn`` under ``torch.profiler``: device busy time
-    (the sum of every device op's own time) and the ops that take most of
-    it. The idle share divides busy by ``wall``, the unprofiled solve's
-    time, since the profiler slows the host. Outside the counted runs."""
+    (the sum of every device op's own time), the ops that take most of it,
+    and the port's own kernels (their time inside the solve). The idle
+    share divides busy by ``wall``, the unprofiled solve's time, since the
+    profiler slows the host. Outside the counted runs."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
     with torch_profile(activities=[ProfilerActivity.CPU,
@@ -285,6 +416,12 @@ def profile(what: str, wall: float, fn, *a, **kw):
         f"{1 - busy / wall:.3f}")
     for us, count, key in rows[:8]:
         log(f"[profile]   {us / 1e3:9.3f} ms  {count:6d} x  {key[:90]}")
+    for us, count, key in rows:
+        if key.startswith(PORT_KERNEL_SYMBOLS):
+            name = key.split("::", 1)[1].split("(")[0]
+            log(f"[profile]   port kernel {name}: "
+                f"{us / 1e3:.3f} ms over {count} launches, "
+                f"{us / 1e3 / count:.4f} ms each")
 
 
 def check_oracle(res, oracle, what: str, invariant: bool = True):
@@ -325,13 +462,7 @@ def phase_main(dev, problems, oracle, counts: dict):
     for backend in ("pallas", "xla"):
         profile(f"backend={backend} batch", walls[backend],
                 maxflow_grid_batch, prob, backend=backend, device=dev)
-    a, b = results["pallas"], results["xla"]
-    for key in ("flow", "cut", "rounds", "heuristics", "converged"):
-        if not np.array_equal(a[key], b[key]):
-            raise AssertionError(f"pallas and xla differ in {key}")
-    for key, v in a["state"].items():
-        if not np.array_equal(v, b["state"][key]):
-            raise AssertionError(f"pallas and xla differ in state.{key}")
+    require_same(results["pallas"], results["xla"], "pallas vs xla")
     return prob
 
 
@@ -374,6 +505,103 @@ def phase_balanced(dev, prob, oracle, counts: dict):
             device=dev)
 
 
+def solve_in_turns(what: str, dev, counts: dict, check, fn, *a,
+                   **kw) -> dict:
+    """Solve with ``backend="pallas"``, ``"xla"``, ``"xla"``, ``"pallas"``,
+    in turns, so host drift over the four solves hits both backends alike,
+    after one uncounted warm-up solve of the first instance per backend.
+
+    Before each solve the launch counts are set to 0 and just after it
+    they are read: the first solve of a backend records them under
+    ``counts[f"{what}_{backend}"]``, and the second must launch the same.
+    ``check(solve_id, res)`` runs on every result; the second result of a
+    backend must equal its first on every leaf, and ``pallas`` must equal
+    ``xla``. Then each backend is profiled once (``profile``) against the
+    mean of its two unprofiled walls. Returns ``{backend: [wall, wall]}``.
+    """
+    from repro_torch.interop import to_numpy
+    for backend in ("pallas", "xla"):   # warm-up: loads the kernels used
+        solve(fn, *(x[:1] for x in a), backend=backend, device=dev, **kw)
+    results, walls = {}, {"pallas": [], "xla": []}
+    for backend in ("pallas", "xla", "xla", "pallas"):
+        solve_id = f"{what}_{backend}"
+        reset_counts()
+        res, wall = solve(fn, *a, backend=backend, device=dev, **kw)
+        got = read_counts()
+        log(f"[{what}] {backend}: {wall:.4f} s, launches {got}")
+        check(solve_id, res)
+        if solve_id in counts:
+            if got != counts[solve_id]:
+                raise AssertionError(f"{solve_id}: launches {got} != first "
+                                     f"solve's {counts[solve_id]}")
+            require_same(to_numpy(res), results[backend], f"{solve_id} rerun")
+        counts.setdefault(solve_id, got)
+        results.setdefault(backend, to_numpy(res))
+        walls[backend].append(wall)
+    require_same(results["pallas"], results["xla"], what)
+    for backend in ("pallas", "xla"):
+        profile(f"{what} {backend}", sum(walls[backend]) / 2, fn, *a,
+                backend=backend, device=dev, **kw)
+    return walls
+
+
+def phase_assignment(dev, counts: dict) -> dict:
+    """``solve_assignment`` on ASSIGN_B x n^2 weights for both methods on
+    both backends: scipy's optimal weights, the JAX package's rounds,
+    ``pallas`` equal to ``xla`` on every leaf, K4 on ``pallas`` only."""
+    from repro_torch.core.assignment.cost_scaling import solve_assignment
+    from repro_torch.core.assignment.ref import optimal_weight
+    w = assignment_weights()
+    optimum = [optimal_weight(x) for x in w]
+    log(f"[assignment] scipy optimal weights {optimum}")
+    walls = {}
+    for method in ("auction", "pushrelabel"):
+        def check(solve_id, res):
+            log(f"[{solve_id}] weights {res.weight.tolist()}, rounds "
+                f"{res.rounds.tolist()}")
+            if not bool(res.converged.all()):
+                raise AssertionError(f"{solve_id}: not converged")
+            if res.weight.tolist() != optimum:
+                raise AssertionError(f"{solve_id}: weights != scipy")
+            if tuple(res.rounds.tolist()) != ASSIGN_ROUNDS_WANT[method]:
+                raise AssertionError(f"{solve_id}: rounds != JAX package's "
+                                     f"{ASSIGN_ROUNDS_WANT[method]}")
+
+        what = f"assignment_{method}"
+        walls[what] = solve_in_turns(what, dev, counts, check,
+                                     solve_assignment, w, method=method)
+        require_launched(counts[f"{what}_pallas"], ["bidding"], what)
+        require_not_launched(counts[f"{what}_xla"], ["bidding"], what)
+    return walls
+
+
+def phase_matching(dev, counts: dict) -> dict:
+    """``match_bipartite_batch`` on MATCH_B graphs of n^2 on both backends:
+    Hopcroft-Karp's cardinalities, the JAX package's phases, the backends
+    equal on every leaf, K5 on ``pallas`` only."""
+    from repro_torch.core.matching import hopcroft_karp, match_bipartite_batch
+    adj = matching_adjacency()
+    oracle = [hopcroft_karp(a)[2] for a in adj]
+    log(f"[matching] Hopcroft-Karp cardinalities {oracle}")
+
+    def check(solve_id, res):
+        log(f"[{solve_id}] cardinalities {res.cardinality.tolist()}, phases "
+            f"{res.rounds.tolist()}")
+        if not bool(res.converged.all()):
+            raise AssertionError(f"{solve_id}: not converged")
+        if res.cardinality.tolist() != oracle:
+            raise AssertionError(f"{solve_id}: cardinalities != oracle")
+        if tuple(res.rounds.tolist()) != MATCH_ROUNDS_WANT:
+            raise AssertionError(f"{solve_id}: phases != JAX package's "
+                                 f"{MATCH_ROUNDS_WANT}")
+
+    walls = solve_in_turns("matching", dev, counts, check,
+                           match_bipartite_batch, adj)
+    require_launched(counts["matching_pallas"], ["frontier"], "matching")
+    require_not_launched(counts["matching_xla"], ["frontier"], "matching")
+    return {"matching": walls}
+
+
 def nvidia_smi() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -406,13 +634,17 @@ def main() -> int:
     counts = {}
     prob = phase_main(dev, problems, oracle, counts)
     phase_balanced(dev, prob, oracle, counts)
+    phase_assignment(dev, counts)
+    phase_matching(dev, counts)
 
-    # max_abs_err, ms, plain_ms, bound_ms, bound_by (+ details) come from
-    # phase_kernels; launches are summed over the four solves; no single
-    # PyTorch call computes these functions
+    # max_abs_err, ms, plain_ms, library_ms, bound_ms, bound_by (+ details)
+    # come from phase_kernels; launches are summed over the solves, and
+    # listed per solve where non-zero
     rows = [dict(name=name, route="cuda", source=source, replaces=replaces,
                  launches=sum(c[name] for c in counts.values()),
-                 library_ms=None, equal=True, card=card, **kernels[name])
+                 launches_per_solve={k: c[name] for k, c in counts.items()
+                                     if c[name]},
+                 equal=True, card=card, **kernels[name])
             for name, (source, replaces) in KERNEL_SOURCES.items()]
     log(f"[done] launches per phase {counts}; "
         f"{time.perf_counter() - t0:.1f} s in all")

@@ -1,8 +1,11 @@
 """Carry problems and states between the JAX package and the port.
 
 The port's counterpart of carrying weights across. The JAX package's
-``GridProblem``, ``GridFlowState`` and ``GridFlowResult`` and the port's
-share field names and leaf layouts, so a structure crosses leaf by leaf:
+named tuples and the port's share names, field names and leaf layouts
+(grid max-flow: ``GridProblem``, ``GridFlowState``, ``GridFlowResult``;
+assignment: ``AssignmentResult``, ``_RefineState``, ``_ScaleState``;
+matching: ``MatchingResult``, ``MatchState``), so a structure, nested
+ones included, crosses leaf by leaf:
 
 * ``to_torch`` takes a (named) tuple whose leaves are numpy arrays or
   anything ``np.asarray`` reads (a JAX array, say) and builds the port's
@@ -20,10 +23,14 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core.assignment import cost_scaling
+from repro_torch.core.matching import bfs
 from repro_torch.core.maxflow import grid
 
-_TYPES = {t.__name__: t for t in (grid.GridProblem, grid.GridFlowState,
-                                  grid.GridFlowResult)}
+_TYPES = {t.__name__: t for t in (
+    grid.GridProblem, grid.GridFlowState, grid.GridFlowResult,
+    cost_scaling.AssignmentResult, cost_scaling._RefineState,
+    cost_scaling._ScaleState, bfs.MatchingResult, bfs.MatchState)}
 
 
 def _leaf_to_torch(x, device: torch.device) -> torch.Tensor:
@@ -33,8 +40,8 @@ def _leaf_to_torch(x, device: torch.device) -> torch.Tensor:
 def to_torch(tree, device=None):
     """The port's counterpart of ``tree`` on ``device`` (default cuda).
 
-    Named tuples map to the port's class of the same name (``GridProblem``,
-    ``GridFlowState``, ``GridFlowResult``); ``None`` leaves stay ``None``.
+    Named tuples map to the port's class of the same name (see the module
+    note), nested ones too; ``None`` leaves stay ``None``.
     """
     dev = resolve_device(device)
     if tree is None:

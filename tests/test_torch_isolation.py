@@ -27,6 +27,11 @@ def test_import_pulls_in_neither_jax_nor_repro():
         "import repro_torch.core.maxflow.grid, repro_torch.interop\n"
         "import repro_torch.kernels.grid_push.ops\n"
         "import repro_torch.kernels.bfs_relabel.ops\n"
+        "import repro_torch.core.assignment.cost_scaling\n"
+        "import repro_torch.core.assignment.ref\n"
+        "import repro_torch.core.matching, repro_torch.core.matching.bfs\n"
+        "import repro_torch.kernels.bidding.ops\n"
+        "import repro_torch.kernels.frontier.ops\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "print(bad)\n")

@@ -1,5 +1,5 @@
-"""On the card: each CUDA kernel against its plain PyTorch version, and the
-slice on the card against the slice on the CPU.
+"""On the card: each CUDA kernel against its plain PyTorch version, and
+each solver on the card against the same solver on the CPU.
 
 Every test here needs a CUDA card and skips without one (marker
 ``torch``). The file imports no ``jax``, so it runs where only PyTorch is
@@ -12,12 +12,19 @@ import pytest
 import torch
 from torch_parity import assert_same, bits_equal, cuda_device  # noqa: F401
 
+from repro_torch.core.assignment.cost_scaling import solve_assignment
+from repro_torch.core.matching import match_bipartite_batch
+from repro_torch.core.matching.ref import random_bipartite
 from repro_torch.core.maxflow.grid import (INF_H, GridProblem,
                                            maxflow_grid_batch)
 from repro_torch.core.maxflow.ref import (checkerboard_problem,
                                           random_grid_problem)
 from repro_torch.kernels.bfs_relabel import kernel as bk
 from repro_torch.kernels.bfs_relabel.ref import bfs_relabel_sweeps_ref
+from repro_torch.kernels.bidding import kernel as bidk
+from repro_torch.kernels.bidding.ref import INF, bidding_ref
+from repro_torch.kernels.frontier import kernel as frk
+from repro_torch.kernels.frontier.ref import frontier_ref
 from repro_torch.kernels.grid_push import kernel as gk
 from repro_torch.kernels.grid_push.ops import tile_schedule, tile_shape
 from repro_torch.kernels.grid_push.ref import (grid_push_decide_ref,
@@ -101,5 +108,73 @@ def test_slice_on_card_equals_cpu(cuda_device, backend):
     prob = GridProblem(*(np.stack([p[k] for p in probs]) for k in range(3)))
     got = maxflow_grid_batch(prob, backend=backend, device=cuda_device)
     want = maxflow_grid_batch(prob, backend=backend, device="cpu")
+    assert_same(got, want)
+    assert bool(got.converged.all())
+
+
+@pytest.mark.parametrize("shape,ties", [((3, 96, 512), False),
+                                        ((2, 40, 37), True),
+                                        ((64, 1), True)])
+def test_k4_kernel_equals_plain(cuda_device, shape, ties):
+    """Vector (width % 4 == 0) and scalar paths, ties, masked rows."""
+    rng = np.random.default_rng(3)
+    *batch, n_r, n_c = shape
+    c = (rng.integers(0, 4, shape) if ties
+         else -(n_c + 1) * rng.integers(0, 101, shape))
+    p = rng.integers(-3, 3, tuple(batch) + (n_c,))
+    mask = rng.random(shape) < 0.3
+    mask[..., ::7, :] = True
+    t = lambda a, dt: torch.tensor(a, dtype=dt, device=cuda_device)  # noqa
+    args = (t(c, torch.int32), t(p, torch.int32), t(mask, torch.bool))
+    before = bidk.bidding.launches
+    got = bidk.bidding(*args)
+    torch.cuda.synchronize()
+    assert bidk.bidding.launches == before + 1
+    want = bidding_ref(*args)
+    assert all(bits_equal(g, w) for g, w in zip(got, want))
+    assert bool((got[1][..., ::7] == 0).all())
+    assert bool((got[0][..., ::7] == INF).all())
+
+
+@pytest.mark.parametrize("shape", [(2, 600, 1024), (3, 257, 48),
+                                   (1, 300, 37)])
+def test_k5_kernel_equals_plain(cuda_device, shape):
+    """16-column and scalar paths, several row chunks, ties of roots."""
+    rng = np.random.default_rng(4)
+    *batch, n_r, n_c = shape
+    adj = rng.random(shape) < 0.05
+    root = np.where(rng.random(tuple(batch) + (n_r,)) < 0.5,
+                    rng.integers(0, 5, tuple(batch) + (n_r,)), INF)
+    match = rng.integers(-1, n_c, tuple(batch) + (n_r,))
+    t = lambda a, dt: torch.tensor(a, dtype=dt, device=cuda_device)  # noqa
+    args = (t(adj, torch.bool), t(root, torch.int32), t(match, torch.int32))
+    before = frk.frontier.launches
+    got = frk.frontier(*args)
+    torch.cuda.synchronize()
+    assert frk.frontier.launches == before + 1
+    want = frontier_ref(*args)
+    assert all(bits_equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("method", ["auction", "pushrelabel"])
+def test_assignment_on_card_equals_cpu(cuda_device, method):
+    w = np.random.default_rng(5).integers(0, 101, size=(3, 48, 48))
+    before = bidk.bidding.launches
+    got = solve_assignment(w, method=method, backend="pallas",
+                           device=cuda_device)
+    assert bidk.bidding.launches > before
+    want = solve_assignment(w, method=method, backend="pallas", device="cpu")
+    assert_same(got, want)
+    assert bool(got.converged.all())
+
+
+def test_matching_on_card_equals_cpu(cuda_device):
+    rng = np.random.default_rng(6)
+    adj = np.stack([random_bipartite(rng, 300, 200, 4 / 200)
+                    for _ in range(3)])
+    before = frk.frontier.launches
+    got = match_bipartite_batch(adj, backend="pallas", device=cuda_device)
+    assert frk.frontier.launches > before
+    want = match_bipartite_batch(adj, backend="pallas", device="cpu")
     assert_same(got, want)
     assert bool(got.converged.all())
