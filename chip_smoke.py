@@ -13,6 +13,11 @@ Drives ``src/repro_torch`` only (no ``jax``, nothing of ``repro``):
    ``bidding`` at the assignment path's (8 x 512^2, with ``torch.topk``
    as its one-call yardstick) and K5 ``frontier`` at the matching path's
    (4 x 4096^2, with ``torch.min`` over a packed key as its yardstick);
+   K6 ``flash_attention_fwd`` within 3e-5 (float32) and 2e-2 (bfloat16)
+   of its plain version over the JAX kernel test's sweep and at the serve
+   path's prefill shape (8 x 1024 tokens, 9 heads over 3 kv heads, dh 64,
+   causal, float32), with ``F.scaled_dot_product_attention`` timed as its
+   yardstick;
 3. drives the grid path, ``maxflow_grid_batch`` on 4 seeded
    ``random_grid_problem`` instances of 512 x 512, with ``backend="pallas"``
    and ``backend="xla"``: both converge, match the scipy oracle, satisfy
@@ -27,7 +32,15 @@ Drives ``src/repro_torch`` only (no ``jax``, nothing of ``repro``):
 6. drives the matching path, ``match_bipartite_batch`` on 4 seeded
    4096 x 4096 graphs at p = 4/n on both backends: Hopcroft-Karp's
    cardinalities, the JAX package's phases, the backends equal;
-7. reads the launch counts of every solve of phases 3 to 6 (each set to 0
+7. drives the LLM serving path, smollm-135m at full width (30 layers) on
+   weights from ``repro_torch.interop.numpy_params`` (seed 0): 8 prompts
+   of 1024 tokens and 16 new tokens through ``make_prefill_step`` and
+   ``make_serve_step``, a warm-up and two timed runs. Each run's tokens and
+   logits are held to the JAX package's top-5 per step and request
+   (``tests/torch_smoke_serve.json``, see ``check_serve``); K6 must launch
+   once per layer in each prefill and never in a decode step. Matmuls stay
+   in full float32 (``torch.backends.cuda.matmul.allow_tf32`` is False);
+8. reads the launch counts of every solve of phases 3 to 7 (each set to 0
    just before its solve and read just after) and fails if a kernel of
    that solve was never launched, or if K4 or K5 was launched by an
    ``xla`` solve.
@@ -68,6 +81,33 @@ ASSIGN_ROUNDS_WANT = {
     "auction": (320, 384, 352, 368, 336, 384, 368, 352),
     "pushrelabel": (720, 816, 752, 752, 800, 800, 800, 784)}
 MATCH_ROUNDS_WANT = (8, 10, 8, 7)
+# the serve path: the model, batch, prompt length and new tokens; the JAX
+# package's top-5 logits per step on the same weights and prompts, from a
+# CPU run of `PYTHONPATH=src JAX_PLATFORMS=cpu python
+# tests/torch_smoke_constants.py serve`
+SERVE_ARCH = "smollm-135m"
+SERVE_B, SERVE_S, SERVE_NEW = 8, 1024, 16
+SERVE_CONSTANTS = ROOT / "tests" / "torch_smoke_serve.json"
+# Each of the port's logits at JAX's top-5 ids must lie within LOGIT_TOL x
+# the step's largest |logit| (JAX's, per request) of JAX's value. Both run
+# in float32 (no TF32) and differ only in summation order (cuBLAS and K6
+# against XLA on the CPU); at smoke size on the CPU that difference is
+# about 1e-6 of the largest logit, and 1e-3 leaves room for 30 layers and
+# 1024 positions while a kernel that drops a key tile or reads the wrong
+# kv head moves the logits far more (phase 2 holds K6 itself to 3e-5).
+LOGIT_TOL = 1e-3
+# K6 against its plain version: (B, Sq, Sk, H, KV, dh, dv), causal, dtype
+# -- the JAX kernel test's sweep (dh != dv, MQA, non-causal) and its
+# bfloat16 case; the serve path's shape is added from SERVE_* in phase 2
+FLASH_SWEEP = [
+    ((2, 64, 64, 4, 2, 16, 16), True, torch.float32),
+    ((1, 128, 128, 6, 3, 32, 16), False, torch.float32),
+    ((2, 256, 256, 8, 8, 64, 64), True, torch.float32),
+    ((1, 64, 64, 4, 1, 16, 8), True, torch.float32),
+    ((1, 512, 512, 2, 2, 32, 32), True, torch.float32),
+    ((2, 64, 64, 4, 2, 16, 16), True, torch.bfloat16),
+]
+FLASH_TOL = {torch.float32: 3e-5, torch.bfloat16: 2e-2}
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 FP32_OPS_PER_S = 67e12         # H100 SXM non-tensor 32-bit rate (data sheet)
 KERNEL_SOURCES = {
@@ -81,6 +121,8 @@ KERNEL_SOURCES = {
                 "src/repro/kernels/bidding/kernel.py:67"),
     "frontier": ("src/repro_torch/kernels/csrc/frontier.cu",
                  "src/repro/kernels/frontier/kernel.py:71"),
+    "flash_attention_fwd": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention/kernel.py:81"),
 }
 
 
@@ -92,7 +134,7 @@ def log(*a):
 PORT_KERNEL_SYMBOLS = tuple(
     f"{p}(anonymous namespace)::{k}" for p in ("", "void ")
     for k in ("grid_push_decide", "bfs_relabel_sweep", "bidding_kernel",
-              "frontier_"))
+              "frontier_", "flash_fwd_kernel"))
 
 
 def device_events(prof):
@@ -268,9 +310,12 @@ def phase_kernels(dev, card: str) -> dict:
     for row in out.values():
         row["library_ms"] = None   # no single PyTorch call computes K1-K3
     out.update(kernels_assignment_matching(dev))
+    out.update(kernels_flash(dev))
     for name, row in out.items():
         lib = row["library_ms"]
-        log(f"[kernels] {name}: equal to plain, device {row['ms']:.4f} ms "
+        how = ("equal to" if row.get("equal", True)
+               else f"within {row['tolerance']} of")
+        log(f"[kernels] {name}: {how} plain, device {row['ms']:.4f} ms "
             f"(loop {row['loop_ms']:.4f} ms; plain device "
             f"{row['plain_ms']:.4f} ms, loop {row['plain_loop_ms']:.4f} ms; "
             f"library {'none' if lib is None else f'{lib:.4f} ms'}; "
@@ -337,6 +382,67 @@ def kernels_assignment_matching(dev) -> dict:
     return out
 
 
+def flash_inputs(rng, dims, dtype, dev):
+    """Random normal q, k, v of the sweep's ``(B, Sq, Sk, H, KV, dh, dv)``."""
+    B, Sq, Sk, H, KV, dh, dv = dims
+    return tuple(torch.tensor(rng.standard_normal(shape, dtype=np.float32),
+                              device=dev).to(dtype)
+                 for shape in ((B, Sq, H, dh), (B, Sk, KV, dh),
+                               (B, Sk, KV, dv)))
+
+
+def kernels_flash(dev) -> dict:
+    """K6 against its plain version over FLASH_SWEEP and at the serve
+    path's prefill shape (max abs error within FLASH_TOL), with timings and
+    ``F.scaled_dot_product_attention`` (causal, GQA, on the head-major
+    views) as its one-call yardstick, timed only."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    rng = np.random.default_rng(SEED + 2)
+    cfg = get_config(SERVE_ARCH)
+    main = ((SERVE_B, SERVE_S, SERVE_S, cfg.n_heads, cfg.n_kv_heads, cfg.dh,
+             cfg.dh), True, torch.float32)
+    sweep = []
+    for dims, causal, dtype in FLASH_SWEEP + [main]:
+        q, k, v = flash_inputs(rng, dims, dtype, dev)
+        got = flash_attention_fwd(q, k, v, causal=causal)
+        want = flash_attention_ref(q, k, v, causal=causal)
+        if got.dtype != dtype or got.shape != want.shape:
+            raise AssertionError(f"K6 {dims}: {got.dtype} {got.shape}")
+        err = (got.float() - want.float()).abs().max().item()
+        if not err <= FLASH_TOL[dtype]:
+            raise AssertionError(f"K6 {dims} causal={causal} {dtype}: max "
+                                 f"abs err {err} > {FLASH_TOL[dtype]}")
+        sweep.append(dict(dims=list(dims), causal=causal,
+                          dtype=str(dtype).split(".")[1], max_abs_err=err))
+        log(f"[kernels] K6 {dims} causal={causal} {dtype}: max abs err "
+            f"{err:.3g} (tolerance {FLASH_TOL[dtype]})")
+    B, Sq, Sk, H, KV, dh, dv = main[0]
+    # causal pairs pos_q >= pos_k, 2*dh + 2*dv flops each; q, k, v read and
+    # o written once (float32)
+    pairs = B * H * Sq * (Sq + 1) // 2
+    b_ms, b_by = bound(4 * (q.numel() + k.numel() + v.numel() + got.numel()),
+                       pairs * (2 * dh + 2 * dv))
+    qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+
+    def library():
+        return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                              enable_gqa=True)
+    lib_err = (library().transpose(1, 2) - want).abs().max().item()
+    log(f"[kernels] K6 yardstick scaled_dot_product_attention: max abs "
+        f"diff {lib_err:.3g} from the plain version (timed only)")
+    return {"flash_attention_fwd": dict(
+        equal=False, tolerance=FLASH_TOL[torch.float32],
+        max_abs_err=sweep[-1]["max_abs_err"], bound_ms=b_ms, bound_by=b_by,
+        causal_pairs=pairs, sweep=sweep,
+        library_ms=time_ms(library)[0],
+        **timings(lambda: flash_attention_fwd(q, k, v, causal=True),
+                  lambda: flash_attention_ref(q, k, v, causal=True)))}
+
+
 def timings(kernel, plain) -> dict:
     """Device and loop ms per call of a kernel's wrapper and its plain
     version (see ``time_ms``)."""
@@ -349,11 +455,13 @@ def timings(kernel, plain) -> dict:
 def counters():
     from repro_torch.kernels.bfs_relabel.kernel import bfs_relabel_sweeps
     from repro_torch.kernels.bidding.kernel import bidding
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
     from repro_torch.kernels.frontier.kernel import frontier
     from repro_torch.kernels.grid_push.kernel import (grid_push_decide,
                                                       grid_push_decide_sched)
     return {f.__name__: f for f in (grid_push_decide, grid_push_decide_sched,
-                                    bfs_relabel_sweeps, bidding, frontier)}
+                                    bfs_relabel_sweeps, bidding, frontier,
+                                    flash_attention_fwd)}
 
 
 def reset_counts():
@@ -397,12 +505,14 @@ def solve(fn, *a, **kw):
     return res, time.perf_counter() - t0
 
 
-def profile(what: str, wall: float, fn, *a, **kw):
+def profile(what: str, wall: float, fn, *a, **kw) -> dict:
     """One more run of ``fn`` under ``torch.profiler``: device busy time
     (the sum of every device op's own time), the ops that take most of it,
     and the port's own kernels (their time inside the solve). The idle
     share divides busy by ``wall``, the unprofiled solve's time, since the
-    profiler slows the host. Outside the counted runs."""
+    profiler slows the host. Outside the counted runs. Returns the busy
+    seconds, the idle share, the number of device ops (kernels, copies,
+    memsets) and ``{kernel: (ms, launches)}`` of the port's kernels."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
     with torch_profile(activities=[ProfilerActivity.CPU,
@@ -411,17 +521,22 @@ def profile(what: str, wall: float, fn, *a, **kw):
         _, secs = solve(fn, *a, **kw)
     rows = device_events(prof)
     busy = sum(r[0] for r in rows) / 1e6
+    launches = sum(r[1] for r in rows)
     log(f"[profile] {what}: wall {wall:.4f} s unprofiled ({secs:.4f} s "
         f"profiled), device busy {busy:.4f} s, idle share "
-        f"{1 - busy / wall:.3f}")
+        f"{1 - busy / wall:.3f}, {launches} device ops")
     for us, count, key in rows[:8]:
         log(f"[profile]   {us / 1e3:9.3f} ms  {count:6d} x  {key[:90]}")
+    port = {}
     for us, count, key in rows:
         if key.startswith(PORT_KERNEL_SYMBOLS):
             name = key.split("::", 1)[1].split("(")[0]
+            port[name] = (us / 1e3, count)
             log(f"[profile]   port kernel {name}: "
                 f"{us / 1e3:.3f} ms over {count} launches, "
                 f"{us / 1e3 / count:.4f} ms each")
+    return dict(busy_s=busy, idle_share=1 - busy / wall, launches=launches,
+                port_kernels=port)
 
 
 def check_oracle(res, oracle, what: str, invariant: bool = True):
@@ -602,6 +717,158 @@ def phase_matching(dev, counts: dict) -> dict:
     return {"matching": walls}
 
 
+def serve_prompts(vocab: int, B: int = SERVE_B, S: int = SERVE_S,
+                  seed: int = SEED + 1) -> np.ndarray:
+    """The serve phase's ``(B, S)`` int32 prompt tokens."""
+    return np.random.default_rng(seed).integers(0, vocab, (B, S),
+                                                dtype=np.int32)
+
+
+def top5_records(logits: np.ndarray) -> dict:
+    """Per request of one step's ``(B, vocab)`` logits: the five largest
+    (ids, first index first among equals, as ``argmax``), their values and
+    the largest |logit|."""
+    ids = np.argsort(-logits, axis=-1, kind="stable")[:, :5]
+    return {"ids": ids.tolist(),
+            "logits": np.take_along_axis(logits, ids, -1).tolist(),
+            "absmax": np.abs(logits).max(-1).tolist()}
+
+
+def port_serve(model, prompts: torch.Tensor, max_new: int, S_max: int):
+    """One greedy generation through ``make_prefill_step`` and
+    ``make_serve_step``, each step timed and its launch counts read (set
+    to 0 just before it). Returns the steps' ``(tokens, logits)`` as numpy,
+    the prefill wall, the decode steps' walls and the counts of the
+    prefill and of each decode step."""
+    from repro_torch.models.model import init_caches
+    from repro_torch.serve.engine import make_prefill_step, make_serve_step
+    dev = prompts.device
+    sync = torch.cuda.synchronize if dev.type == "cuda" else lambda: None
+    B = prompts.shape[0]
+    caches = init_caches(model.cfg, B, S_max, dtype=torch.float32, device=dev)
+    prefill, step = make_prefill_step(model), make_serve_step(model)
+    sync()
+    reset_counts()
+    t0 = time.perf_counter()
+    nxt, state = prefill(prompts, caches)
+    sync()
+    t_prefill = time.perf_counter() - t0
+    c_prefill = read_counts()
+    outs = [(nxt, state.logits)]
+    t_steps, c_steps = [], []
+    for _ in range(max_new - 1):
+        reset_counts()
+        t0 = time.perf_counter()
+        nxt, state = step(state)
+        sync()
+        t_steps.append(time.perf_counter() - t0)
+        c_steps.append(read_counts())
+        outs.append((nxt, state.logits))
+    steps = [(t.cpu().numpy(), lg.float().cpu().numpy()) for t, lg in outs]
+    return steps, t_prefill, t_steps, c_prefill, c_steps, state
+
+
+def check_serve(steps, want: list, tol: float = LOGIT_TOL) -> dict:
+    """Hold a generation's ``steps`` (``(tokens (B,), logits (B, vocab))``
+    per step) to the JAX package's ``top5_records`` per step.
+
+    Per request and step: the port's logits at JAX's five ids lie within
+    ``tol`` x JAX's largest |logit| of JAX's values; where JAX's top-2 gap
+    exceeds that tolerance, the port's token is JAX's first id. At the
+    first step where the gap does not (a real near-tie), that request's
+    later steps are not compared: its continuation may rightly differ.
+    Returns the steps compared per request, the near-tie steps and the
+    largest error as a share of its tolerance."""
+    B = len(want[0]["ids"])
+    compared, ties, worst = [0] * B, [], 0.0
+    for b in range(B):
+        for t, ((tokens, logits), rec) in enumerate(zip(steps, want)):
+            ids = np.asarray(rec["ids"][b])
+            vals = np.asarray(rec["logits"][b], dtype=np.float64)
+            tol_b = tol * rec["absmax"][b]
+            err = np.abs(logits[b, ids].astype(np.float64) - vals).max()
+            worst = max(worst, err / tol_b)
+            if err > tol_b:
+                raise AssertionError(
+                    f"serve step {t} request {b}: top-5 logits differ from "
+                    f"the JAX package's by {err:.3g} > {tol_b:.3g}")
+            compared[b] += 1
+            if vals[0] - vals[1] <= tol_b:
+                ties.append((b, t))
+                break
+            if int(tokens[b]) != int(ids[0]):
+                raise AssertionError(
+                    f"serve step {t} request {b}: token {int(tokens[b])} != "
+                    f"the JAX package's {int(ids[0])} (gap "
+                    f"{vals[0] - vals[1]:.3g})")
+    return dict(steps_compared=compared, near_ties=ties,
+                worst_err_over_tol=float(worst))
+
+
+def phase_serve(dev, counts: dict) -> dict:
+    """smollm-135m at full width on ``numpy_params`` weights: a warm-up
+    and two timed generations of SERVE_B x SERVE_S prompts and SERVE_NEW
+    tokens, each held to the JAX package's constants, K6 launched once
+    per layer in each prefill and never in decode; then one profiled
+    prefill and one profiled decode step."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.interop import model_from_params, numpy_params
+    from repro_torch.models.model import init_caches
+    from repro_torch.serve.engine import make_prefill_step, make_serve_step
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on; the serve check assumes "
+                             "full float32")
+    want = json.loads(SERVE_CONSTANTS.read_text())
+    setup = dict(arch=SERVE_ARCH, B=SERVE_B, S=SERVE_S, max_new=SERVE_NEW,
+                 seed=SEED)
+    if {k: want[k] for k in setup} != setup:
+        raise AssertionError(f"{SERVE_CONSTANTS.name} was made for "
+                             f"{ {k: want[k] for k in setup} }, not {setup}")
+    cfg = get_config(SERVE_ARCH)
+    t0 = time.perf_counter()
+    model = model_from_params(cfg, numpy_params(cfg, SEED), device=dev)
+    prompts = torch.tensor(serve_prompts(cfg.vocab, SERVE_B, SERVE_S),
+                           device=dev)
+    log(f"[serve] {SERVE_ARCH}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {sum(p.numel() for p in model.parameters())} "
+        f"parameters on the card in {time.perf_counter() - t0:.1f} s")
+    S_max = SERVE_S + SERVE_NEW
+    walls = []
+    for run in ("warm-up", "run 1", "run 2"):
+        steps, t_pre, t_steps, c_pre, c_steps, state = port_serve(
+            model, prompts, SERVE_NEW, S_max)
+        got = check_serve(steps, want["steps"])
+        if c_pre["flash_attention_fwd"] != cfg.n_layers:
+            raise AssertionError(f"serve prefill: K6 launched "
+                                 f"{c_pre['flash_attention_fwd']} times, not "
+                                 f"once per layer ({cfg.n_layers})")
+        require_not_launched(c_pre, [n for n in c_pre
+                                     if n != "flash_attention_fwd"],
+                             "serve prefill")
+        for c in c_steps:
+            require_not_launched(c, list(c), "serve decode step")
+        tokens = np.stack([t for t, _ in steps], 1)
+        log(f"[serve] {run}: prefill {t_pre * 1e3:.2f} ms "
+            f"({SERVE_B * SERVE_S / t_pre:.0f} tok/s), decode "
+            f"{np.mean(t_steps) * 1e3:.3f} ms per token step "
+            f"({SERVE_B / np.mean(t_steps):.0f} tok/s), launches per "
+            f"prefill {c_pre['flash_attention_fwd']}; JAX check {got}; "
+            f"request 0 tokens {tokens[0].tolist()}")
+        if run != "warm-up":
+            walls.append((t_pre, float(np.mean(t_steps))))
+            counts.setdefault("serve_prefill", c_pre)
+            counts.setdefault("serve_decode", {
+                n: sum(c[n] for c in c_steps) for n in c_pre})
+    t_pre = sum(w[0] for w in walls) / len(walls)
+    t_step = sum(w[1] for w in walls) / len(walls)
+    caches = init_caches(cfg, SERVE_B, S_max, dtype=torch.float32,
+                         device=dev)
+    pre = profile("serve prefill 8 x 1024", t_pre, make_prefill_step(model),
+                  prompts, caches)
+    dec = profile("serve decode step", t_step, make_serve_step(model), state)
+    return dict(walls=walls, prefill=pre, decode=dec)
+
+
 def nvidia_smi() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -636,15 +903,21 @@ def main() -> int:
     phase_balanced(dev, prob, oracle, counts)
     phase_assignment(dev, counts)
     phase_matching(dev, counts)
+    serve = phase_serve(dev, counts)
+    k6 = serve["prefill"]["port_kernels"]
+    kernels["flash_attention_fwd"]["prefill_ms_per_launch"] = (
+        sum(ms for ms, _ in k6.values()) / sum(n for _, n in k6.values()))
 
-    # max_abs_err, ms, plain_ms, library_ms, bound_ms, bound_by (+ details)
-    # come from phase_kernels; launches are summed over the solves, and
-    # listed per solve where non-zero
-    rows = [dict(name=name, route="cuda", source=source, replaces=replaces,
-                 launches=sum(c[name] for c in counts.values()),
-                 launches_per_solve={k: c[name] for k, c in counts.items()
-                                     if c[name]},
-                 equal=True, card=card, **kernels[name])
+    # max_abs_err, ms, plain_ms, library_ms, bound_ms, bound_by (+ details;
+    # K6 replaces equal with its tolerance) come from phase_kernels;
+    # launches are summed over the solves, and listed per solve where
+    # non-zero
+    rows = [{**dict(name=name, route="cuda", source=source,
+                    replaces=replaces,
+                    launches=sum(c[name] for c in counts.values()),
+                    launches_per_solve={k: c[name]
+                                        for k, c in counts.items() if c[name]},
+                    equal=True, card=card), **kernels[name]}
             for name, (source, replaces) in KERNEL_SOURCES.items()]
     log(f"[done] launches per phase {counts}; "
         f"{time.perf_counter() - t0:.1f} s in all")

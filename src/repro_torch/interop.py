@@ -15,6 +15,18 @@ ones included, crosses leaf by leaf:
 * ``to_numpy`` turns any such structure, the port's or the JAX
   package's, into a dict of numpy arrays under the field names.
 
+Model weights cross the same way:
+
+* ``numpy_params`` builds the JAX package's ``init_model`` params tree
+  (nested dicts, ``body`` leaves stacked on a leading period axis) as
+  numpy arrays from a seed, with the JAX init's standard deviations, so
+  the JAX package, the port and ``chip_smoke.py`` can all start from the
+  same weights;
+* ``load_params`` copies such a tree (numpy or JAX leaves) into the
+  port's ``Model``, unstacking ``body`` into per-layer blocks and
+  transposing each ``x @ W`` matrix into its ``nn.Linear``;
+  ``model_from_params`` builds the model and loads it.
+
 Imports neither ``jax`` nor ``repro``.
 """
 from __future__ import annotations
@@ -26,6 +38,9 @@ from repro_torch import resolve_device
 from repro_torch.core.assignment import cost_scaling
 from repro_torch.core.matching import bfs
 from repro_torch.core.maxflow import grid
+from repro_torch.models.layers import dense_std, depth_scaled_std
+from repro_torch.models.model import (Model, check_supported, layer_plan,
+                                      plan_period)
 
 _TYPES = {t.__name__: t for t in (
     grid.GridProblem, grid.GridFlowState, grid.GridFlowResult,
@@ -71,3 +86,132 @@ def to_numpy(tree):
     if hasattr(tree, "_fields"):
         return {k: to_numpy(v) for k, v in zip(tree._fields, tree)}
     return _leaf_to_numpy(tree)
+
+
+# ---------------------------------------------------------------------------
+# Model weights
+# ---------------------------------------------------------------------------
+
+def _sublayer_tree(cfg, spec, normal, ones, zeros) -> dict:
+    """One sublayer of the JAX params tree (``_init_sublayer``'s keys)."""
+    D, H, KV, dh, F = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.dh,
+                       cfg.d_ff)
+
+    def norm():
+        p = {"g": ones((D,))}
+        if cfg.norm == "layernorm":
+            p["b"] = zeros((D,))
+        return p
+
+    mixer = {"wq": normal((D, H * dh), dense_std(D)),
+             "wk": normal((D, KV * dh), dense_std(D)),
+             "wv": normal((D, KV * dh), dense_std(D)),
+             "wo": normal((H * dh, D),
+                          depth_scaled_std(H * dh, cfg.n_layers))}
+    if cfg.qk_norm:
+        mixer["q_g"] = ones((dh,))
+        mixer["k_g"] = ones((dh,))
+    p = {"norm1": norm(), "mixer": mixer}
+    if spec[1]:
+        ffn = {"w1": normal((D, F), dense_std(D)),
+               "w2": normal((F, D), depth_scaled_std(F, cfg.n_layers))}
+        if cfg.gated_mlp:
+            ffn["w3"] = normal((D, F), dense_std(D))
+        p["norm2"] = norm()
+        p["ffn"] = ffn
+    return p
+
+
+def numpy_params(cfg, seed: int = 0) -> dict:
+    """The JAX ``init_model(cfg, ...)[0]`` tree as float32 numpy arrays
+    drawn from ``np.random.default_rng(seed)``, with its stds (the
+    numbers are numpy's, not ``jax.random``'s). ``body`` leaves carry the
+    leading ``n_periods`` axis. For the configs the port runs."""
+    check_supported(cfg)
+    rng = np.random.default_rng(seed)
+    plan = layer_plan(cfg)
+    period = plan_period(cfg)
+    n_pre = cfg.n_dense_prefix
+    n_periods = (cfg.n_layers - n_pre) // period
+
+    def maker(lead):
+        def normal(shape, std):
+            return (rng.standard_normal(lead + shape, dtype=np.float32)
+                    * np.float32(std))
+        return (normal, lambda shape: np.ones(lead + shape, np.float32),
+                lambda shape: np.zeros(lead + shape, np.float32))
+
+    one = maker(())
+    tree = {"embed": one[0]((cfg.vocab, cfg.d_model),
+                            cfg.d_model ** -0.5),
+            "prefix": [_sublayer_tree(cfg, plan[i], *one)
+                       for i in range(n_pre)],
+            "body": {f"sub{j}": _sublayer_tree(cfg, plan[n_pre + j],
+                                               *maker((n_periods,)))
+                     for j in range(period)},
+            "final_norm": {"g": one[1]((cfg.d_model,))}}
+    if cfg.norm == "layernorm":
+        tree["final_norm"]["b"] = one[2]((cfg.d_model,))
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = one[0]((cfg.d_model, cfg.vocab),
+                                 dense_std(cfg.d_model))
+    return tree
+
+
+def _matrix(x) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(x).T))
+
+
+def _vector(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, copy=True))
+
+
+def _sublayer_state(prefix: str, tree: dict) -> dict:
+    sd = {}
+    for norm in ("norm1", "norm2"):
+        for k, x in tree.get(norm, {}).items():
+            sd[f"{prefix}.{norm}.{k}"] = _vector(x)
+    for part in ("mixer", "ffn"):
+        for k, x in tree.get(part, {}).items():
+            if k in ("q_g", "k_g"):
+                sd[f"{prefix}.{part}.{k}"] = _vector(x)
+            else:   # x @ W in JAX, W.T in nn.Linear
+                sd[f"{prefix}.{part}.{k}.weight"] = _matrix(x)
+    return sd
+
+
+def load_params(model: Model, params: dict) -> Model:
+    """Copy a JAX ``init_model`` params tree (numpy or JAX leaves) into
+    ``model``, every tensor checked by ``load_state_dict(strict=True)``.
+    Layer ``n_dense_prefix + r * period + j`` takes ``body["sub{j}"]`` at
+    index ``r`` of its leading axis. Returns ``model``."""
+    cfg = model.cfg
+    period = plan_period(cfg)
+    n_pre = cfg.n_dense_prefix
+    sd = {"embed": _vector(params["embed"])}
+    for i, tree in enumerate(params["prefix"]):
+        sd.update(_sublayer_state(f"layers.{i}", tree))
+    n_periods = (cfg.n_layers - n_pre) // period
+    body = [{part: {k: np.asarray(x) for k, x in sub.items()}
+             for part, sub in params["body"][f"sub{j}"].items()}
+            for j in range(period)]
+    for r in range(n_periods):
+        for j, tree in enumerate(body):
+            at_r = {part: {k: x[r] for k, x in sub.items()}
+                    for part, sub in tree.items()}
+            sd.update(_sublayer_state(f"layers.{n_pre + r * period + j}",
+                                      at_r))
+    for k, x in params["final_norm"].items():
+        sd[f"final_norm.{k}"] = _vector(x)
+    if "lm_head" in params:
+        sd["lm_head.weight"] = _matrix(params["lm_head"])
+    with torch.no_grad():
+        model.load_state_dict(sd, strict=True)
+    return model
+
+
+def model_from_params(cfg, params: dict, device=None) -> Model:
+    """The port's ``Model`` holding a JAX-layout params tree's weights, on
+    ``device`` (default cuda), in the tree's dtype."""
+    dtype = torch.from_numpy(np.asarray(params["embed"][:1])).dtype
+    return load_params(Model(cfg, device=device, dtype=dtype), params)

@@ -1,0 +1,85 @@
+"""Serving launcher: batched prefill + greedy decode on one card.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
+      --batch 8 --prompt-len 1024 --max-new 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
+      --smoke --batch 2 --prompt-len 8 --max-new 4 --device cpu
+
+Counterpart of ``repro/launch/serve.py``: random weights and prompts from
+``--seed`` (torch generators, so not the JAX CLI's numbers), the same
+three report lines. Runs on the card unless ``--device cpu`` is given;
+there is no mesh, so the JAX CLI's ``--model-parallel`` has no
+counterpart. The first prefill includes building the kernels.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import get_config, smoke_variant
+from repro_torch.models.model import init_caches, init_model
+from repro_torch.serve.engine import make_prefill_step, make_serve_step
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = smoke_variant(cfg)
+    if cfg.family == "encoder":
+        raise SystemExit("encoder archs have no decode path")
+
+    dev = resolve_device(args.device)
+    model = init_model(cfg, torch.Generator().manual_seed(args.seed),
+                       device=dev)
+    B, S = args.batch, args.prompt_len
+    prompts = torch.randint(
+        0, cfg.vocab, (B, S), dtype=torch.int32,
+        generator=torch.Generator().manual_seed(args.seed + 1)).to(dev)
+    caches = init_caches(cfg, B, S + args.max_new, dtype=torch.float32,
+                         device=dev)
+
+    prefill = make_prefill_step(model)
+    t0 = time.perf_counter()
+    nxt, state = prefill(prompts, caches)
+    _sync(dev)
+    t_prefill = time.perf_counter() - t0
+
+    step = make_serve_step(model)
+    toks = [nxt]
+    t0 = time.perf_counter()
+    for _ in range(args.max_new - 1):
+        nxt, state = step(state)
+        toks.append(nxt)
+    _sync(dev)
+    t_decode = time.perf_counter() - t0
+
+    out = torch.stack(toks, dim=1).cpu()
+    print(f"prefill: {B}x{S} in {t_prefill*1e3:.0f}ms "
+          f"({B*S/t_prefill:.0f} tok/s)")
+    print(f"decode: {args.max_new - 1} steps in {t_decode*1e3:.0f}ms "
+          f"({B*(args.max_new-1)/max(t_decode,1e-9):.0f} tok/s)")
+    print("sample generations (token ids):")
+    for b in range(min(B, 2)):
+        print(f"  req{b}: {out[b, :12].tolist()}")
+
+
+if __name__ == "__main__":
+    main()

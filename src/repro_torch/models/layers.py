@@ -1,0 +1,106 @@
+"""Shared model building blocks: parameter init, norms, activations, RoPE.
+
+Counterpart of ``repro/models/layers.py``. One card has no mesh, so there
+is no ``Sharder``: the JAX package's sharding constraints are no-ops
+without a mesh, and the port leaves them out. Parameter init takes an
+explicit ``torch.Generator`` and uses the standard deviations of
+``ParamFactory.dense``; the numbers differ from ``jax.random``'s, so the
+parity tests carry weights across (``repro_torch.interop``) instead.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def normal_(p: torch.Tensor, std: float, generator: torch.Generator) -> None:
+    """Fill ``p`` in place with N(0, std^2) draws from ``generator``.
+
+    Draws on the generator's device and copies, so a CPU generator can
+    initialise a model on the card."""
+    with torch.no_grad():
+        w = torch.randn(p.shape, generator=generator, dtype=p.dtype,
+                        device=generator.device)
+        p.copy_(w.mul_(std))
+
+
+def dense_std(fan_in: int) -> float:
+    """``ParamFactory.dense``'s default standard deviation."""
+    return fan_in ** -0.5
+
+
+def depth_scaled_std(fan_in: int, n_layers: int) -> float:
+    """The std of the residual output projections (``wo``, ``w2``)."""
+    return fan_in ** -0.5 / (2 * n_layers) ** 0.5
+
+
+def linear(d_in: int, d_out: int, device, dtype) -> nn.Linear:
+    """A bias-free ``nn.Linear``; its ``weight`` is the JAX ``(d_in,
+    d_out)`` matrix transposed."""
+    return nn.Linear(d_in, d_out, bias=False, device=device, dtype=dtype)
+
+
+def rmsnorm(x, g, eps=1e-6):
+    x32 = x.float()
+    scale = torch.rsqrt(torch.mean(x32 * x32, -1, keepdim=True) + eps)
+    return (x32 * scale).to(x.dtype) * g
+
+
+def layernorm(x, g, b, eps=1e-5):
+    x32 = x.float()
+    mu = torch.mean(x32, -1, keepdim=True)
+    var = torch.mean((x32 - mu) ** 2, -1, keepdim=True)
+    return ((x32 - mu) * torch.rsqrt(var + eps)).to(x.dtype) * g + b
+
+
+class Norm(nn.Module):
+    """RMSNorm (``g``) or LayerNorm (``g``, ``b``), by ``cfg.norm``."""
+
+    def __init__(self, d: int, kind: str, device=None, dtype=None):
+        super().__init__()
+        self.kind = kind
+        self.g = nn.Parameter(torch.ones(d, device=device, dtype=dtype))
+        if kind == "layernorm":
+            self.b = nn.Parameter(torch.zeros(d, device=device, dtype=dtype))
+
+    def forward(self, x):
+        if self.kind == "layernorm":
+            return layernorm(x, self.g, self.b)
+        return rmsnorm(x, self.g)
+
+
+def relu2(x):
+    r = F.relu(x)
+    return r * r
+
+
+def gelu_tanh(x):
+    """``jax.nn.gelu``, whose default is the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+ACTIVATIONS: dict[str, Callable] = {
+    "relu2": relu2,          # nemotron/minitron squared-ReLU
+    "gelu": gelu_tanh,
+    "silu": F.silu,
+}
+
+
+def apply_rope(x, positions, theta: float = 10_000.0):
+    """Table-free RoPE (rotate half). x: (B, S, H, D); positions: (S,) int.
+
+    Frequencies are float32 and come from ``positions`` directly, as in
+    the JAX package: no (max_seq, D/2) table.
+    """
+    d = x.shape[-1]
+    inv = 1.0 / (theta ** (torch.arange(0, d, 2, dtype=torch.float32,
+                                        device=x.device) / d))
+    f = positions.to(torch.float32)[:, None] * inv[None, :]    # (S, D/2)
+    c = torch.cos(f)[None, :, None, :]
+    s = torch.sin(f)[None, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s],
+                     dim=-1).to(x.dtype)

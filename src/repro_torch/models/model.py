@@ -1,0 +1,213 @@
+"""LM assembly: layer plan -> blocks -> logits, for the dense GQA families.
+
+Counterpart of ``repro/models/model.py``. The JAX package stacks each
+period of the layer plan and scans over the periods; the port holds one
+``Block`` per layer (``norm1``, ``mixer``, ``norm2``, ``ffn``) in
+``Model.layers`` and runs them in a loop. Layer ``i`` of the port is the
+JAX package's ``prefix[i]`` for ``i < n_dense_prefix`` and otherwise
+``body["sub{j}"]`` at period ``r``, ``i = n_dense_prefix + r * period + j``
+(``repro_torch.interop.load_params`` carries weights across that way).
+``remat`` only changes what training saves, never forward values, so the
+port has none.
+
+Runs the dense and token-input families (smollm-135m, chameleon-34b,
+command-r-plus-104b, minitron-8b, nemotron-4-340b). MoE, mamba, the
+hybrid and encoder stacks, MLA, input frontends and the int8 cache wait
+for ROADMAP M9: ``check_supported`` raises ``NotImplementedError`` for
+them.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, NamedTuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.attention import GQA, KVCache, init_gqa
+from repro_torch.models.layers import Norm, dense_std, linear, normal_
+from repro_torch.models.mlp import MLP, init_mlp
+
+
+# ---------------------------------------------------------------------------
+# Layer plan
+# ---------------------------------------------------------------------------
+
+def layer_plan(cfg: ModelConfig) -> list[tuple[str, str | None]]:
+    plan = []
+    for i in range(cfg.n_layers):
+        if cfg.family == "ssm":
+            mixer = "mamba"
+        elif cfg.family == "hybrid":
+            mixer = "attn" if i % cfg.attn_period == 0 else "mamba"
+        else:
+            mixer = "attn"
+        if (cfg.moe is not None and i >= cfg.n_dense_prefix
+                and (i - cfg.n_dense_prefix) % cfg.moe.every == 0):
+            ffn = "moe"
+        elif cfg.d_ff:
+            ffn = "mlp"
+        else:
+            ffn = None
+        plan.append((mixer, ffn))
+    return plan
+
+
+def plan_period(cfg: ModelConfig) -> int:
+    period = cfg.attn_period if cfg.family == "hybrid" else 1
+    if cfg.moe is not None:
+        period = math.lcm(period, cfg.moe.every)
+    assert (cfg.n_layers - cfg.n_dense_prefix) % period == 0, cfg.name
+    return period
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` naming the ROADMAP item for a config
+    the port cannot run yet."""
+    missing = []
+    if cfg.family in ("ssm", "hybrid") or any(
+            m == "mamba" for m, _ in layer_plan(cfg)):
+        missing.append("mamba (SSD) layers")
+    if cfg.moe is not None:
+        missing.append("MoE with core/routing.py")
+    if cfg.family == "encoder" or not cfg.causal:
+        missing.append("the encoder stack")
+    if cfg.frontend_dim:
+        missing.append("input frontends")
+    if cfg.attn_type == "mla":
+        missing.append("MLA attention")
+    if cfg.kv_quant:
+        missing.append("the int8 KV cache (kv_quant)")
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP M9)")
+
+
+# ---------------------------------------------------------------------------
+# Modules and init
+# ---------------------------------------------------------------------------
+
+class Block(nn.Module):
+    """One layer: ``norm1`` -> GQA ``mixer`` -> residual, then (where the
+    plan has an FFN) ``norm2`` -> ``ffn`` -> residual."""
+
+    def __init__(self, cfg: ModelConfig, spec, device=None, dtype=None):
+        super().__init__()
+        _, ffn = spec
+        self.norm1 = Norm(cfg.d_model, cfg.norm, device, dtype)
+        self.mixer = GQA(cfg, device, dtype)
+        if ffn:
+            self.norm2 = Norm(cfg.d_model, cfg.norm, device, dtype)
+            self.ffn = MLP(cfg, device=device, dtype=dtype)
+
+    def forward(self, x, *, positions, cache, decode: bool):
+        mo, new_cache = self.mixer(self.norm1(x), positions=positions,
+                                   cache=cache, decode=decode)
+        x = x + mo
+        if hasattr(self, "ffn"):
+            x = x + self.ffn(self.norm2(x))
+        return x, new_cache
+
+
+class Model(nn.Module):
+    """The port's LM: ``embed`` ``(vocab, d_model)``, ``layers`` (one
+    ``Block`` each), ``final_norm`` and, untied, ``lm_head``. Built with
+    uninitialised weights: ``init_model`` draws them,
+    ``repro_torch.interop.load_params`` copies the JAX package's."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        check_supported(cfg)
+        dev = resolve_device(device)
+        self.cfg = cfg
+        self.embed = nn.Parameter(torch.empty(cfg.vocab, cfg.d_model,
+                                              device=dev, dtype=dtype))
+        self.layers = nn.ModuleList(
+            Block(cfg, spec, dev, dtype) for spec in layer_plan(cfg))
+        self.final_norm = Norm(cfg.d_model, cfg.norm, dev, dtype)
+        if not cfg.tie_embeddings:
+            self.lm_head = linear(cfg.d_model, cfg.vocab, dev, dtype)
+
+    def forward(self, batch, **kw) -> "ModelOutput":
+        return apply_model(self, batch, **kw)
+
+
+def init_model(cfg: ModelConfig, generator: torch.Generator, *, device=None,
+               dtype=torch.float32) -> Model:
+    """A model with random weights drawn from ``generator``: the JAX
+    ``init_model``'s standard deviations (``fan_in ** -0.5``; the embedding
+    ``d_model ** -0.5``; ``wo`` and ``w2`` depth-scaled; norm gains 1 and
+    biases 0). Runs on ``device`` (default cuda); the generator may live
+    on the CPU."""
+    model = Model(cfg, device=device, dtype=dtype)
+    # d^-0.5 embedding scale keeps tied-head logits ~N(0,1) at init
+    normal_(model.embed, cfg.d_model ** -0.5, generator)
+    for block in model.layers:
+        init_gqa(block.mixer, generator)
+        if hasattr(block, "ffn"):
+            init_mlp(block.ffn, generator)
+    if not cfg.tie_embeddings:
+        normal_(model.lm_head.weight, dense_std(cfg.d_model), generator)
+    return model
+
+
+# ---------------------------------------------------------------------------
+# Apply
+# ---------------------------------------------------------------------------
+
+class ModelOutput(NamedTuple):
+    logits: torch.Tensor
+    caches: Any
+
+
+def apply_model(model: Model, batch, *, caches=None, decode: bool = False,
+                pos_offset=0, logits_mode: str = "all") -> ModelOutput:
+    """batch: ``{"tokens": (B, S) int}``. ``caches``: ``init_caches``'s list
+    (one ``KVCache`` per layer) or None. ``pos_offset`` may be an int or a
+    0-d tensor on the model's device (the decode position). Returns the
+    logits ``(B, S, vocab)`` (``logits_mode="last"``: ``(B, 1, vocab)``)
+    and the new caches (None without caches)."""
+    cfg = model.cfg
+    tokens = batch["tokens"]
+    x = F.embedding(tokens.long(), model.embed)
+    S = x.shape[1]
+    positions = pos_offset + torch.arange(S, device=x.device)
+    new_caches = []
+    for i, block in enumerate(model.layers):
+        x, nc = block(x, positions=positions,
+                      cache=caches[i] if caches is not None else None,
+                      decode=decode)
+        new_caches.append(nc)
+    x = model.final_norm(x)
+    if logits_mode == "last":
+        x = x[:, -1:]
+    if cfg.tie_embeddings:
+        logits = x @ model.embed.T
+    else:
+        logits = model.lm_head(x)
+    return ModelOutput(logits, new_caches if caches is not None else None)
+
+
+# ---------------------------------------------------------------------------
+# Caches
+# ---------------------------------------------------------------------------
+
+def _layer_cache(cfg, spec, B, S_max, dtype, device) -> KVCache:
+    shape = (B, S_max, cfg.n_kv_heads, cfg.dh)
+    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device),
+                   torch.tensor(0, dtype=torch.int32, device=device))
+
+
+def init_caches(cfg: ModelConfig, B: int, S_max: int, dtype=torch.bfloat16,
+                device=None) -> list[KVCache]:
+    """One empty ``KVCache`` per layer (the JAX package stacks the body's
+    along a leading period axis)."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    return [_layer_cache(cfg, spec, B, S_max, dtype, dev)
+            for spec in layer_plan(cfg)]

@@ -32,6 +32,9 @@ def test_import_pulls_in_neither_jax_nor_repro():
         "import repro_torch.core.matching, repro_torch.core.matching.bfs\n"
         "import repro_torch.kernels.bidding.ops\n"
         "import repro_torch.kernels.frontier.ops\n"
+        "import repro_torch.kernels.flash_attention.ops\n"
+        "import repro_torch.configs.all, repro_torch.models.model\n"
+        "import repro_torch.serve.engine, repro_torch.launch.serve\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "print(bad)\n")

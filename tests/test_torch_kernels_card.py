@@ -4,14 +4,18 @@ each solver on the card against the same solver on the CPU.
 Every test here needs a CUDA card and skips without one (marker
 ``torch``). The file imports no ``jax``, so it runs where only PyTorch is
 installed: ``python -m pytest -q -m torch tests/test_torch_*.py``.
-Tolerance: bitwise equality; the kernels repeat the plain versions'
-integer and float32 compare/select/min arithmetic exactly.
+Tolerance: bitwise equality for K1-K5; the kernels repeat the plain
+versions' integer and float32 compare/select/min arithmetic exactly. K6
+sums in another order than its plain version (a dense float32 softmax), so
+it is held to the JAX package's kernel-test bounds: max abs error 3e-5 in
+float32 and 2e-2 in bfloat16.
 """
 import numpy as np
 import pytest
 import torch
 from torch_parity import assert_same, bits_equal, cuda_device  # noqa: F401
 
+from repro_torch.configs.base import get_config, smoke_variant
 from repro_torch.core.assignment.cost_scaling import solve_assignment
 from repro_torch.core.matching import match_bipartite_batch
 from repro_torch.core.matching.ref import random_bipartite
@@ -23,12 +27,17 @@ from repro_torch.kernels.bfs_relabel import kernel as bk
 from repro_torch.kernels.bfs_relabel.ref import bfs_relabel_sweeps_ref
 from repro_torch.kernels.bidding import kernel as bidk
 from repro_torch.kernels.bidding.ref import INF, bidding_ref
+from repro_torch.interop import model_from_params, numpy_params
+from repro_torch.kernels.flash_attention import kernel as fak
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.frontier import kernel as frk
 from repro_torch.kernels.frontier.ref import frontier_ref
 from repro_torch.kernels.grid_push import kernel as gk
 from repro_torch.kernels.grid_push.ops import tile_schedule, tile_shape
 from repro_torch.kernels.grid_push.ref import (grid_push_decide_ref,
                                                grid_push_decide_sched_ref)
+from repro_torch.models.model import apply_model
+from repro_torch.serve.engine import greedy_generate
 
 pytestmark = pytest.mark.torch
 
@@ -178,3 +187,77 @@ def test_matching_on_card_equals_cpu(cuda_device):
     want = match_bipartite_batch(adj, backend="pallas", device="cpu")
     assert_same(got, want)
     assert bool(got.converged.all())
+
+
+# (B, Sq, Sk, H, KV, dh, dv), causal: the JAX kernel test's five shapes,
+# ragged lengths (tails of both tiles), Sq != Sk, and the widths of the
+# later MLA slice (dh 192, dv 128) and the limit (256)
+K6_SWEEP = [
+    ((2, 64, 64, 4, 2, 16, 16), True),
+    ((1, 128, 128, 6, 3, 32, 16), False),
+    ((2, 256, 256, 8, 8, 64, 64), True),
+    ((1, 64, 64, 4, 1, 16, 8), True),
+    ((1, 512, 512, 2, 2, 32, 32), True),
+    ((2, 100, 100, 9, 3, 64, 64), True),
+    ((1, 70, 130, 4, 2, 24, 40), False),
+    ((1, 130, 70, 4, 2, 24, 40), True),
+    ((1, 96, 96, 4, 4, 192, 128), True),
+    ((1, 65, 65, 2, 1, 256, 256), True),
+]
+
+
+@pytest.mark.parametrize("dims,causal", K6_SWEEP)
+def test_k6_kernel_close_to_plain(cuda_device, dims, causal):
+    B, Sq, Sk, H, KV, dh, dv = dims
+    rng = np.random.default_rng(7)
+    t = lambda *s: torch.tensor(rng.normal(size=s).astype(np.float32),  # noqa
+                                device=cuda_device)
+    q, k, v = t(B, Sq, H, dh), t(B, Sk, KV, dh), t(B, Sk, KV, dv)
+    before = fak.flash_attention_fwd.launches
+    got = fak.flash_attention_fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fak.flash_attention_fwd.launches == before + 1
+    want = flash_attention_ref(q, k, v, causal=causal)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert (got - want).abs().max().item() <= 3e-5
+
+
+def test_k6_kernel_bf16_close_to_plain(cuda_device):
+    rng = np.random.default_rng(1)
+    t = lambda *s: torch.tensor(rng.normal(size=s), dtype=torch.bfloat16,  # noqa
+                                device=cuda_device)
+    q, k, v = t(2, 64, 4, 16), t(2, 64, 2, 16), t(2, 64, 2, 16)
+    got = fak.flash_attention_fwd(q, k, v, causal=True)
+    want = flash_attention_ref(q, k, v, causal=True)
+    assert got.dtype == torch.bfloat16
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+
+
+def test_k6_refuses_autograd(cuda_device):
+    q = torch.zeros(1, 8, 2, 16, device=cuda_device, requires_grad=True)
+    k = torch.zeros(1, 8, 1, 16, device=cuda_device)
+    with pytest.raises(NotImplementedError, match="backward"):
+        fak.flash_attention_fwd(q, k, k)
+
+
+def test_serve_on_card_close_to_cpu(cuda_device):
+    """smollm-135m at smoke size: prefill logits and greedy tokens on the
+    card against the CPU path (plain scan); K6 launched once per layer of
+    the prefill. Tolerance 1e-4 x the largest |logit|: float32 on both
+    sides, summed in other orders."""
+    cfg = smoke_variant(get_config("smollm-135m"))
+    params = numpy_params(cfg, seed=0)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 32))
+    outs = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        model = model_from_params(cfg, params, device=dev)
+        tok = torch.tensor(toks, dtype=torch.int32, device=dev)
+        before = fak.flash_attention_fwd.launches
+        with torch.no_grad():
+            logits = apply_model(model, {"tokens": tok}).logits
+        launched = fak.flash_attention_fwd.launches - before
+        assert launched == (cfg.n_layers if dev.type == "cuda" else 0)
+        outs[dev.type] = (logits.cpu(), greedy_generate(model, tok, 6).cpu())
+    (a, ta), (b, tb) = outs["cuda"], outs["cpu"]
+    assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+    assert torch.equal(ta, tb)

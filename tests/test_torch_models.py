@@ -1,0 +1,246 @@
+"""The port's configs, layers and dense GQA model against the JAX package.
+
+Configs are pure data and must be equal. Weights cross from the JAX
+layout (``repro_torch.interop``): the same ``numpy_params`` tree goes into
+the JAX ``apply_model`` (with ``Sharder()``, no mesh) and the port's. Both
+run float32 on the CPU and differ only in summation order, which at smoke
+size moves logits by about 1e-6 of their largest magnitude. Tolerance:
+``LOGIT_TOL`` x the largest |logit| (absolute), ``1e-5`` for the
+building blocks.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.base import get_config as jax_get_config
+from repro.configs.base import list_configs as jax_list_configs
+from repro.configs.base import smoke_variant as jax_smoke_variant
+from repro.models import layers as jlayers
+from repro.models import model as jmodel
+from repro.models.layers import Sharder
+from repro_torch.configs.base import get_config, list_configs, smoke_variant
+from repro_torch.interop import load_params, model_from_params, numpy_params
+from repro_torch.models import layers as tlayers
+from repro_torch.models import model as tmodel
+from repro_torch.models.attention import KVCache, init_mla, mla_apply
+from repro_torch.models.mlp import init_moe, moe_apply
+
+LOGIT_TOL = 1e-5
+BLOCK_TOL = 1e-5
+RUNNABLE = ["chameleon-34b", "command-r-plus-104b", "minitron-8b",
+            "nemotron-4-340b", "smollm-135m"]
+UNPORTED = {"deepseek-v2-236b": "MoE", "hubert-xlarge": "encoder",
+            "jamba-v0.1-52b": "mamba", "mamba2-370m": "mamba",
+            "phi3.5-moe-42b-a6.6b": "MoE"}
+
+
+def _cfgs(arch):
+    return (smoke_variant(get_config(arch)),
+            jax_smoke_variant(jax_get_config(arch)))
+
+
+def _axes(jcfg):
+    return jmodel.init_model(jcfg, jax.random.PRNGKey(0))[1]
+
+
+def _close(got, want, what=""):
+    want = np.asarray(want)
+    tol = LOGIT_TOL * np.abs(want).max()
+    np.testing.assert_allclose(np.asarray(got), want, rtol=0, atol=tol,
+                               err_msg=what)
+
+
+# ---------------------------------------------------------------------------
+# Configs and plans
+# ---------------------------------------------------------------------------
+
+def test_registry_equals_jax():
+    assert list_configs() == jax_list_configs()
+    assert sorted(RUNNABLE + list(UNPORTED)) == list_configs()
+
+
+@pytest.mark.parametrize("arch", sorted(RUNNABLE + list(UNPORTED)))
+def test_config_and_plan_equal_jax(arch):
+    cfg, jcfg = _cfgs(arch)
+    full, jfull = get_config(arch), jax_get_config(arch)
+    assert dataclasses.asdict(full) == dataclasses.asdict(jfull)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    assert full.param_count() == jfull.param_count()
+    assert full.active_param_count() == jfull.active_param_count()
+    for a, b in ((cfg, jcfg), (full, jfull)):
+        assert tmodel.layer_plan(a) == jmodel.layer_plan(b)
+        assert tmodel.plan_period(a) == jmodel.plan_period(b)
+
+
+@pytest.mark.parametrize("arch", sorted(UNPORTED))
+def test_unported_family_raises(arch):
+    cfg, _ = _cfgs(arch)
+    with pytest.raises(NotImplementedError,
+                       match=f"{UNPORTED[arch]}.*ROADMAP M9"):
+        tmodel.init_model(cfg, torch.Generator(), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP M9"):
+        numpy_params(cfg)
+
+
+def test_unported_pieces_raise():
+    cfg = dataclasses.replace(_cfgs("smollm-135m")[0], kv_quant=True)
+    with pytest.raises(NotImplementedError, match="int8 KV cache"):
+        tmodel.Model(cfg, device="cpu")
+    for fn in (init_mla, mla_apply, init_moe, moe_apply):
+        with pytest.raises(NotImplementedError, match="ROADMAP M9"):
+            fn()
+
+
+def test_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device works")
+    cfg, _ = _cfgs("smollm-135m")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tmodel.init_model(cfg, torch.Generator())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tmodel.init_caches(cfg, 1, 8)
+
+
+# ---------------------------------------------------------------------------
+# Building blocks
+# ---------------------------------------------------------------------------
+
+def test_norms_and_activations_match_jax():
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(2, 5, 48)).astype(np.float32) * 3
+    g = rng.normal(size=48).astype(np.float32)
+    b = rng.normal(size=48).astype(np.float32)
+    tx, tg, tb = (torch.tensor(a) for a in (x, g, b))
+    np.testing.assert_allclose(tlayers.rmsnorm(tx, tg).numpy(),
+                               np.asarray(jlayers.rmsnorm(x, g)),
+                               rtol=BLOCK_TOL, atol=BLOCK_TOL)
+    np.testing.assert_allclose(tlayers.layernorm(tx, tg, tb).numpy(),
+                               np.asarray(jlayers.layernorm(x, g, b)),
+                               rtol=BLOCK_TOL, atol=BLOCK_TOL)
+    assert sorted(tlayers.ACTIVATIONS) == sorted(jlayers.ACTIVATIONS)
+    for name, fn in tlayers.ACTIVATIONS.items():
+        np.testing.assert_allclose(
+            fn(tx).numpy(), np.asarray(jlayers.ACTIVATIONS[name](x)),
+            rtol=BLOCK_TOL, atol=BLOCK_TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("theta,offset", [(10_000.0, 0), (75_000_000.0, 37)])
+def test_rope_matches_jax(theta, offset):
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(2, 12, 3, 32)).astype(np.float32)
+    pos = offset + np.arange(12)
+    got = tlayers.apply_rope(torch.tensor(x), torch.tensor(pos), theta)
+    want = jlayers.apply_rope(jnp.asarray(x), jnp.asarray(pos), theta)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=BLOCK_TOL, atol=BLOCK_TOL)
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+def _leaves(tree):
+    return jax.tree_util.tree_flatten_with_path(tree)[0]
+
+
+@pytest.mark.parametrize("arch", RUNNABLE)
+def test_numpy_params_is_the_jax_tree(arch):
+    """Same structure, shapes and dtypes as the JAX ``init_model``; each
+    large leaf's spread within 10% of JAX's (the same std, other draws)."""
+    cfg, jcfg = _cfgs(arch)
+    ours = numpy_params(cfg, seed=0)
+    theirs = jmodel.init_model(jcfg, jax.random.PRNGKey(0))[0]
+    assert jax.tree.structure(ours) == jax.tree.structure(theirs)
+    for (path, a), (_, b) in zip(_leaves(ours), _leaves(theirs)):
+        assert a.shape == b.shape and a.dtype == b.dtype, path
+        if a.size >= 4096:
+            assert abs(np.std(a) / np.std(np.asarray(b)) - 1) < 0.1, path
+        elif np.all(np.asarray(b) == np.asarray(b).flat[0]):
+            assert np.array_equal(a, np.asarray(b)), path     # ones, zeros
+
+
+@pytest.mark.parametrize("arch", RUNNABLE)
+def test_init_model_shapes_and_stds_match_jax(arch):
+    """The port's own init: every tensor takes the JAX init's tree (checked
+    by ``load_state_dict(strict=True)``), with spreads within 10%."""
+    cfg, jcfg = _cfgs(arch)
+    model = tmodel.init_model(cfg, torch.Generator().manual_seed(0),
+                              device="cpu")
+    theirs = jmodel.init_model(jcfg, jax.random.PRNGKey(0))[0]
+    mirror = load_params(tmodel.Model(cfg, device="cpu"), theirs)
+    ours, ref = model.state_dict(), mirror.state_dict()
+    assert ours.keys() == ref.keys()
+    for name, t in ours.items():
+        assert t.shape == ref[name].shape and t.dtype == ref[name].dtype
+        if t.numel() >= 4096:
+            assert abs(t.std().item() / ref[name].std().item() - 1) < 0.1, \
+                name
+        else:
+            assert torch.equal(t, ref[name]), name
+
+
+# ---------------------------------------------------------------------------
+# Forward: prefill and a decode step
+# ---------------------------------------------------------------------------
+
+def _setup(arch, B=2, S=16):
+    cfg, jcfg = _cfgs(arch)
+    params = numpy_params(cfg, seed=0)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (B, S),
+                                             dtype=np.int32)
+    return cfg, jcfg, params, model_from_params(cfg, params, "cpu"), toks
+
+
+@pytest.mark.parametrize("mode", ["all", "last"])
+@pytest.mark.parametrize("arch", RUNNABLE)
+def test_apply_model_matches_jax(arch, mode):
+    cfg, jcfg, params, model, toks = _setup(arch)
+    want = jmodel.apply_model(params, _axes(jcfg), jcfg, Sharder(),
+                              {"tokens": jnp.asarray(toks)},
+                              logits_mode=mode)
+    with torch.no_grad():
+        got = tmodel.apply_model(model, {"tokens": torch.tensor(toks)},
+                                 logits_mode=mode)
+    assert got.caches is None and want.caches is None
+    assert tuple(got.logits.shape) == want.logits.shape
+    _close(got.logits.numpy(), want.logits, arch)
+
+
+@pytest.mark.parametrize("arch", RUNNABLE)
+def test_prefill_then_decode_step_match_jax(arch):
+    """Prefill S - 1 tokens into S + 4 caches, then decode the last one:
+    the caches and both steps' logits as in JAX."""
+    cfg, jcfg, params, model, toks = _setup(arch)
+    B, S = toks.shape
+    axes, shd = _axes(jcfg), Sharder()
+    jc, _ = jmodel.init_caches(jcfg, B, S + 4, dtype=jnp.float32)
+    jpre = jmodel.apply_model(params, axes, jcfg, shd,
+                              {"tokens": jnp.asarray(toks[:, :-1])},
+                              caches=jc)
+    jdec = jmodel.apply_model(params, axes, jcfg, shd,
+                              {"tokens": jnp.asarray(toks[:, -1:])},
+                              caches=jpre.caches, decode=True,
+                              pos_offset=S - 1)
+    tc = tmodel.init_caches(cfg, B, S + 4, dtype=torch.float32,
+                            device="cpu")
+    with torch.no_grad():
+        pre = tmodel.apply_model(model, {"tokens": torch.tensor(
+            toks[:, :-1])}, caches=tc)
+        _close(pre.logits.numpy(), jpre.logits, "prefill")
+        for field in ("k", "v"):
+            got = np.stack([getattr(c, field).numpy() for c in pre.caches])
+            _close(got, getattr(jpre.caches["body"][0], field), field)
+        assert all(int(c.length) == S - 1 for c in pre.caches)
+        dec = tmodel.apply_model(
+            model, {"tokens": torch.tensor(toks[:, -1:])}, caches=pre.caches,
+            decode=True, pos_offset=torch.tensor(S - 1))
+    _close(dec.logits.numpy(), jdec.logits, "decode")
+    assert all(isinstance(c, KVCache) and int(c.length) == S
+               for c in dec.caches)
+    for field in ("k", "v"):
+        got = np.stack([getattr(c, field).numpy() for c in dec.caches])
+        _close(got, getattr(jdec.caches["body"][0], field), field)

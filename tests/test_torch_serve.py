@@ -1,0 +1,168 @@
+"""The port's LLM serving path against the JAX package, on the CPU.
+
+Weights cross from the JAX layout (``repro_torch.interop.numpy_params``).
+``greedy_generate``'s tokens must equal the JAX package's, and each step's
+logits must agree through ``chip_smoke.check_serve`` -- the rule the chip
+smoke applies at full width -- at ``SERVE_TOL`` x the step's largest
+|logit|: float32 on both sides, other summation orders, about 1e-6 of the
+largest logit at this size. The JAX side steps with
+``torch_smoke_constants.jax_generate``, which must give the JAX
+``greedy_generate``'s tokens.
+"""
+import pathlib
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch_smoke_constants as consts
+
+import chip_smoke
+from repro.configs.base import get_config as jax_get_config
+from repro.configs.base import smoke_variant as jax_smoke_variant
+from repro.models.layers import Sharder
+from repro.models.model import init_model as jax_init_model
+from repro.serve.engine import greedy_generate as jax_greedy_generate
+from repro_torch.configs.base import get_config, smoke_variant
+from repro_torch.interop import model_from_params, numpy_params
+from repro_torch.kernels.flash_attention import kernel as fak
+from repro_torch.serve.engine import greedy_generate
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+SERVE_TOL = 1e-5
+RUNNABLE = ["chameleon-34b", "command-r-plus-104b", "minitron-8b",
+            "nemotron-4-340b", "smollm-135m"]
+
+
+@pytest.mark.parametrize("arch", RUNNABLE)
+def test_greedy_generate_matches_jax(arch):
+    cfg = smoke_variant(get_config(arch))
+    jcfg = jax_smoke_variant(jax_get_config(arch))
+    B, S, new = 3, 16, 6
+    params = numpy_params(cfg, seed=1)
+    prompts = chip_smoke.serve_prompts(cfg.vocab, B, S)
+    axes = jax_init_model(jcfg, jax.random.PRNGKey(0))[1]
+    jparams = jax.tree.map(jnp.asarray, params)
+    want_tokens, want_logits = consts.jax_generate(jcfg, jparams, axes,
+                                                   prompts, new)
+    jax_tokens = jax_greedy_generate(jcfg, jparams, axes, Sharder(),
+                                     jnp.asarray(prompts), new)
+    assert np.array_equal(np.asarray(jax_tokens), want_tokens)
+
+    model = model_from_params(cfg, params, device="cpu")
+    got_tokens = greedy_generate(model, torch.tensor(prompts), new)
+    assert got_tokens.dtype == torch.int32
+    assert np.array_equal(got_tokens.numpy(), want_tokens)
+
+    before = fak.flash_attention_fwd.launches
+    steps, *_ = chip_smoke.port_serve(model, torch.tensor(prompts), new,
+                                      S + new)
+    assert fak.flash_attention_fwd.launches == before   # plain on the CPU
+    assert np.array_equal(np.stack([t for t, _ in steps], 1), want_tokens)
+    report = chip_smoke.check_serve(
+        steps, [chip_smoke.top5_records(lg) for lg in want_logits],
+        tol=SERVE_TOL)
+    assert report["steps_compared"] == [new] * B
+    for (_, got), want in zip(steps, want_logits):
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=SERVE_TOL * np.abs(want).max())
+
+
+def test_check_serve_catches_a_wrong_token_and_logit():
+    """The smoke's comparison fails on a flipped decisive token and on a
+    logit off by more than its tolerance, and stops a request at a
+    near-tie."""
+    rng = np.random.default_rng(0)
+    logits = [rng.normal(size=(2, 50)).astype(np.float32) for _ in range(3)]
+    want = [chip_smoke.top5_records(lg) for lg in logits]
+    steps = [(np.argmax(lg, -1), lg.copy()) for lg in logits]
+    assert chip_smoke.check_serve(steps, want)["steps_compared"] == [3, 3]
+    bad = [(t.copy(), lg.copy()) for t, lg in steps]
+    bad[1][0][0] = want[1]["ids"][0][1]
+    with pytest.raises(AssertionError, match="token"):
+        chip_smoke.check_serve(bad, want)
+    bad = [(t.copy(), lg.copy()) for t, lg in steps]
+    bad[2][1][1, want[2]["ids"][1][3]] += 0.01 * want[2]["absmax"][1]
+    with pytest.raises(AssertionError, match="top-5 logits"):
+        chip_smoke.check_serve(bad, want)
+    tie = [lg.copy() for lg in logits]
+    i0, i1 = want[0]["ids"][1][:2]
+    tie[0][1, i1] = tie[0][1, i0]
+    tie[1][1] = -tie[1][1]          # a continuation that differs after it
+    report = chip_smoke.check_serve(
+        [(np.argmax(lg, -1), lg) for lg in tie[:1]] + steps[1:],
+        [chip_smoke.top5_records(lg) for lg in tie])
+    assert report["steps_compared"] == [3, 1]
+    assert report["near_ties"] == [(1, 0)]
+
+
+@pytest.mark.parametrize("fault", ["wrong kv head", "keys past 64 dropped",
+                                   "no causal mask"])
+def test_check_serve_catches_wrong_attention(fault, monkeypatch):
+    """The serve tolerance has teeth: attention that reads the wrong kv
+    head, loses a key tile or forgets the causal mask moves the logits by
+    more than 100x ``chip_smoke.LOGIT_TOL`` of the largest |logit|, and
+    ``check_serve`` fails."""
+    from repro_torch.models import attention
+    cfg = smoke_variant(get_config("smollm-135m"))
+    model = model_from_params(cfg, numpy_params(cfg, seed=0), device="cpu")
+    prompts = torch.tensor(chip_smoke.serve_prompts(cfg.vocab, 2, 128))
+    steps, *_ = chip_smoke.port_serve(model, prompts, 3, 131)
+    want = [chip_smoke.top5_records(lg) for _, lg in steps]
+    right = attention._flash_attend
+    wrong = {
+        "wrong kv head": lambda q, k, v, **kw: right(
+            q, k.roll(1, 2), v.roll(1, 2), **kw),
+        "keys past 64 dropped": lambda q, k, v, **kw: right(
+            q, k[:, :64], v[:, :64], **kw),
+        "no causal mask": lambda q, k, v, causal, **kw: right(
+            q, k, v, causal=False, **kw),
+    }[fault]
+    monkeypatch.setattr(attention, "_flash_attend", wrong)
+    bad, *_ = chip_smoke.port_serve(model, prompts, 3, 131)
+    err = max(np.abs(b[1] - g[1]).max() / np.abs(g[1]).max()
+              for b, g in zip(bad, steps))
+    assert err > 100 * chip_smoke.LOGIT_TOL
+    with pytest.raises(AssertionError):
+        chip_smoke.check_serve(bad, want)
+
+
+def test_serve_constants_fit_the_smoke():
+    """The committed constants were made for the smoke's serve setup."""
+    import json
+    want = json.loads(chip_smoke.SERVE_CONSTANTS.read_text())
+    assert (want["arch"], want["B"], want["S"], want["max_new"],
+            want["seed"]) == (chip_smoke.SERVE_ARCH, chip_smoke.SERVE_B,
+                              chip_smoke.SERVE_S, chip_smoke.SERVE_NEW,
+                              chip_smoke.SEED)
+    assert len(want["steps"]) == chip_smoke.SERVE_NEW
+    for rec in want["steps"]:
+        assert np.asarray(rec["ids"]).shape == (chip_smoke.SERVE_B, 5)
+
+
+def _cli(*args):
+    return subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", *args],
+        capture_output=True, text=True, timeout=300, cwd=ROOT,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
+
+
+def test_serve_cli_on_cpu():
+    proc = _cli("--arch", "smollm-135m", "--smoke", "--batch", "2",
+                "--prompt-len", "8", "--max-new", "4", "--device", "cpu")
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.splitlines()
+    assert lines[0].startswith("prefill: 2x8 in ")
+    assert lines[1].startswith("decode: 3 steps in ")
+    assert lines[2] == "sample generations (token ids):"
+    assert [ln.split(":")[0] for ln in lines[3:]] == ["  req0", "  req1"]
+
+
+def test_serve_cli_unported_family_raises():
+    proc = _cli("--arch", "mamba2-370m", "--smoke", "--device", "cpu")
+    assert proc.returncode != 0
+    assert "NotImplementedError" in proc.stderr
+    assert "ROADMAP M9" in proc.stderr
