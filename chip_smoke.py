@@ -9,7 +9,10 @@ Drives ``src/repro_torch`` only (no ``jax``, nothing of ``repro``):
 2. holds each kernel to its plain PyTorch version, bit for bit, and times
    both (``torch.profiler`` device time over 50 calls): K1
    ``grid_push_decide``, K2 ``grid_push_decide_sched`` and K3
-   ``bfs_relabel_sweeps`` at the grid path's shapes (4 x 512^2), K4
+   ``bfs_relabel_sweeps`` at the grid path's shapes (4 x 512^2; K2 and K3
+   also at the checkerboard's 1 x 256^2, K3 from the seeds and from
+   mid-fixpoint planes, for 1, 3, 8 and 20 sweeps, with ``ds`` on and off,
+   and over every tile shape it may be launched with), K4
    ``bidding`` at the assignment path's (8 x 512^2, with ``torch.topk``
    as its one-call yardstick) and K5 ``frontier`` at the matching path's
    (4 x 4096^2, with ``torch.min`` over a packed key as its yardstick);
@@ -43,7 +46,9 @@ Drives ``src/repro_torch`` only (no ``jax``, nothing of ``repro``):
 8. reads the launch counts of every solve of phases 3 to 7 (each set to 0
    just before its solve and read just after) and fails if a kernel of
    that solve was never launched, or if K4 or K5 was launched by an
-   ``xla`` solve.
+   ``xla`` solve. K3 counts launches (one per call of up to 8 sweeps) and
+   sweeps; each grid solve logs both, and K3's device time per launch
+   inside the profiled solve against its bound per call.
 
 Prints one JSON line per kernel summary, the ``nvidia-smi`` name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero
@@ -130,6 +135,7 @@ def log(*a):
     print(*a, file=sys.stderr, flush=True)
 
 
+K3_SWEEPS = "bfs_relabel_sweeps.sweeps"   # K3's sweep count in read_counts
 # what the port's kernels are called in a profile (csrc/*.cu)
 PORT_KERNEL_SYMBOLS = tuple(
     f"{p}(anonymous namespace)::{k}" for p in ("", "void ")
@@ -156,7 +162,9 @@ def time_ms(fn, reps: int = 50) -> tuple[float, float]:
     from ``torch.profiler``, over ``reps``: the work on the card, without
     the host's launch overhead. Loop ms is CUDA events around a Python loop
     of ``reps`` calls, so it also holds the host's launch rate when that is
-    slower than the card."""
+    slower than the card. A profiler session that records no device event
+    at all (seen now and then after many sessions in one process) is run
+    once more before this fails."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
     fn()
@@ -169,16 +177,17 @@ def time_ms(fn, reps: int = 50) -> tuple[float, float]:
     stop.record()
     torch.cuda.synchronize()
     loop_ms = start.elapsed_time(stop) / reps
-    with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA],
-                       acc_events=True) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    device_ms = sum(r[0] for r in device_events(prof)) / 1e3 / reps
-    if device_ms <= 0:
-        raise AssertionError("torch.profiler saw no device time")
-    return device_ms, loop_ms
+    for _ in range(2):
+        with torch_profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA],
+                           acc_events=True) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        device_ms = sum(r[0] for r in device_events(prof)) / 1e3 / reps
+        if device_ms > 0:
+            return device_ms, loop_ms
+    raise AssertionError("torch.profiler saw no device time")
 
 
 def bound(nbytes: float, nops: float) -> tuple[float, str]:
@@ -209,17 +218,19 @@ def compare(got, want, what: str) -> float:
     return err
 
 
-def random_state(rng, dev):
-    """Random decision inputs at the main path's shapes: integer caps with
-    zeros, half the nodes active, heights spread over [0, 2N)."""
+def random_state(rng, dev, shape=None):
+    """Random decision inputs at ``shape`` (b, h, w), by default the main
+    path's (B, H, W): integer caps with zeros, half the nodes active,
+    heights spread over [0, 2N)."""
     from repro_torch.core.maxflow.ref import random_grid_problem
-    n_nodes = H * W + 2
-    probs = [random_grid_problem(rng, H, W) for _ in range(B)]
+    nb, nh, nw = shape or (B, H, W)
+    n_nodes = nh * nw + 2
+    probs = [random_grid_problem(rng, nh, nw) for _ in range(nb)]
     cap = np.stack([p[0] for p in probs], axis=1)
     cs = np.stack([p[1] for p in probs])
     ct = np.stack([p[2] for p in probs])
-    e = rng.integers(0, 20, (B, H, W)) * (rng.random((B, H, W)) < 0.5)
-    h = rng.integers(0, 2 * n_nodes, (B, H, W))
+    e = rng.integers(0, 20, (nb, nh, nw)) * (rng.random((nb, nh, nw)) < 0.5)
+    h = rng.integers(0, 2 * n_nodes, (nb, nh, nw))
     t = lambda a, dt: torch.tensor(a, dtype=dt, device=dev)  # noqa: E731
     return (t(e, torch.float32), t(h, torch.int32), t(cap, torch.float32),
             t(cs, torch.float32), t(ct, torch.float32), n_nodes)
@@ -241,10 +252,6 @@ def matching_adjacency() -> np.ndarray:
 
 def phase_kernels(dev, card: str) -> dict:
     """Each kernel against its plain version, bitwise, with timings."""
-    from repro_torch.core.maxflow.grid import INF_H
-    from repro_torch.kernels.bfs_relabel.kernel import (SWEEPS,
-                                                        bfs_relabel_sweeps)
-    from repro_torch.kernels.bfs_relabel.ref import bfs_relabel_sweeps_ref
     from repro_torch.kernels.grid_push.kernel import (grid_push_decide,
                                                       grid_push_decide_sched)
     from repro_torch.kernels.grid_push.ops import tile_schedule, tile_shape
@@ -276,6 +283,15 @@ def phase_kernels(dev, card: str) -> dict:
     got = grid_push_decide_sched(*args2, **kw)
     err = compare(got, grid_push_decide_sched_ref(*args2, bh, bw), "K2")
     compare(got, grid_push_decide(e2, h, cap, cs, ct, n_nodes), "K2 vs K1")
+    # 256^2 alone (B = 1), as the checkerboard solve launches it: 16 tiles
+    # of 64 x 64, some idle
+    board_args, board_kw = k2_board_args(rng, dev)
+    compare(grid_push_decide_sched(*board_args, **board_kw),
+            grid_push_decide_sched_ref(*board_args, *board_kw.values()),
+            "K2 256^2")
+    compare(grid_push_decide_sched(*board_args, **board_kw),
+            grid_push_decide(*board_args[:5], board_args[-1]),
+            "K2 256^2 vs K1")
     active_nodes = int(n_act.sum()) * bh * bw
     # decided tiles move K1's 60 B per node; identity tiles read h and
     # write h_new and 6 zero deltas (32 B); plus the schedule itself
@@ -285,28 +301,18 @@ def phase_kernels(dev, card: str) -> dict:
     out["grid_push_decide_sched"] = dict(
         max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
         active_tiles=int(n_act.sum()), tiles=int(sched.numel()),
+        board_ms=time_ms(lambda: grid_push_decide_sched(*board_args,
+                                                        **board_kw))[0],
         **timings(lambda: grid_push_decide_sched(*args2, **kw),
                   lambda: grid_push_decide_sched_ref(*args2, bh, bw)))
+    # grid_push.cu's launch: one block per 256-node chunk of every tile of
+    # every instance (the formula, not a reading of the launch)
+    log(f"[kernels] K2 launch by grid_push.cu's formula: "
+        f"{int(sched.numel()) * -(-bh * bw // 256)} blocks of 256 threads "
+        f"at {B} x {H} x {W}, {-(-bh * bw // 256) * board_args[5].numel()} "
+        f"at 1 x {CHECKERBOARD[0]} x {CHECKERBOARD[1]}")
 
-    # K3: both planes from their seeds, SWEEPS sweeps; the sink-only form
-    # with an odd sweep count (the other ping-pong buffer) too.
-    seed_t = torch.where(ct > 0, 1, INF_H).to(torch.int32)
-    seed_s = torch.where(cs > 0, n_nodes + 1, INF_H).to(torch.int32)
-    args3 = (cap, seed_t, seed_s, seed_t, seed_s)
-    err = compare(bfs_relabel_sweeps(*args3),
-                  bfs_relabel_sweeps_ref(*args3, sweeps=SWEEPS), "K3")
-    compare(bfs_relabel_sweeps(cap, seed_t, None, seed_t, None, sweeps=3),
-            bfs_relabel_sweeps_ref(cap, seed_t, None, seed_t, None, sweeps=3),
-            "K3 sink-only")
-    # per call: 4 caps, 2 seeds, 2 planes in and 2 planes out, 40 B per
-    # node; per node, sweep and plane about 18 ops (4 x load/compare/add/
-    # min, seed min)
-    b_ms, b_by = bound(40 * nodes, 18 * 2 * SWEEPS * nodes)
-    out["bfs_relabel_sweeps"] = dict(
-        max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
-        sweeps_per_call=SWEEPS,
-        **timings(lambda: bfs_relabel_sweeps(*args3),
-                  lambda: bfs_relabel_sweeps_ref(*args3, sweeps=SWEEPS)))
+    out["bfs_relabel_sweeps"] = kernels_k3(dev, cap, cs, ct, n_nodes)
     for row in out.values():
         row["library_ms"] = None   # no single PyTorch call computes K1-K3
     out.update(kernels_assignment_matching(dev))
@@ -321,6 +327,101 @@ def phase_kernels(dev, card: str) -> dict:
             f"library {'none' if lib is None else f'{lib:.4f} ms'}; "
             f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}) on {card}")
     return out
+
+
+def k2_board_args(rng, dev):
+    """K2's inputs at the checkerboard solve's shape, 1 x 256^2, with every
+    other 64 x 64 tile idle."""
+    from repro_torch.kernels.grid_push.ops import tile_schedule, tile_shape
+    e, h, cap, cs, ct, n_nodes = random_state(rng, dev,
+                                              (1, *CHECKERBOARD))
+    bh, bw = tile_shape(*CHECKERBOARD)
+    e.view(1, -1, bh, CHECKERBOARD[1] // bw, bw)[:, ::2, :, 1::2] = 0
+    sched, n_act = tile_schedule(e > 0, bh, bw)
+    return ((e, h, cap, cs, ct, sched, n_act, n_nodes),
+            dict(block_h=bh, block_w=bw))
+
+
+def k3_planes(cap, cs, ct, n_nodes, calls: int):
+    """K3's seeds and the planes after ``calls`` plain calls of SWEEPS
+    sweeps from them (so wavefronts cross tile edges in the next call)."""
+    from repro_torch.core.maxflow.grid import INF_H
+    from repro_torch.kernels.bfs_relabel.kernel import SWEEPS
+    from repro_torch.kernels.bfs_relabel.ref import bfs_relabel_sweeps_ref
+    seed_t = torch.where(ct > 0, 1, INF_H).to(torch.int32)
+    seed_s = torch.where(cs > 0, n_nodes + 1, INF_H).to(torch.int32)
+    dt, ds = seed_t, seed_s
+    for _ in range(calls):
+        dt, ds, _ = bfs_relabel_sweeps_ref(cap, seed_t, seed_s, dt, ds,
+                                           sweeps=SWEEPS)
+    return seed_t, seed_s, dt, ds
+
+
+def k3_bound(nodes: int, with_ds: bool) -> tuple[float, str]:
+    """K3's bound per call of SWEEPS sweeps: caps, seeds and planes read
+    once, planes written once, 40 B per node (28 B with ds off); the
+    sweeps' integer work, about 18 ops per node, sweep and plane."""
+    from repro_torch.kernels.bfs_relabel.kernel import SWEEPS
+    planes = 2 if with_ds else 1
+    return bound((12 * planes + 16) * nodes, 18 * planes * SWEEPS * nodes)
+
+
+def kernels_k3(dev, cap, cs, ct, n_nodes) -> dict:
+    """K3 against its plain version, bitwise (planes and ``changed``), at
+    the grid path's 4 x 512^2 and at the checkerboard's 1 x 256^2: from the
+    seeds, from mid-fixpoint planes, for 1, 3, SWEEPS and 20 sweeps (20
+    takes three launches), with ds on and off; then every tile shape of
+    ``TILES`` at both shapes. Times the SWEEPS-sweep call with both planes
+    from the seeds (the balanced relabel's first call) and the tile
+    shapes."""
+    from repro_torch.core.maxflow.ref import checkerboard_problem
+    from repro_torch.kernels.bfs_relabel.kernel import (
+        SWEEPS, TILES, _sweeps, bfs_relabel_sweeps, launch_geometry)
+    from repro_torch.kernels.bfs_relabel.ref import bfs_relabel_sweeps_ref
+
+    def check(args, sweeps, what, tiles=None):
+        return compare(_sweeps(*args, sweeps, tiles),
+                       bfs_relabel_sweeps_ref(*args, sweeps=sweeps), what)
+
+    bc, bs, bt = (torch.tensor(a, device=dev).unsqueeze(a.ndim - 2)
+                  for a in checkerboard_problem(*CHECKERBOARD))
+    shapes = {"batch": (cap, cs, ct, n_nodes),
+              "board": (bc, bs, bt, CHECKERBOARD[0] * CHECKERBOARD[1] + 2)}
+    err, inputs = 0.0, {}
+    for name, (c, s_, t_, n) in shapes.items():
+        for calls in (0, 3):
+            seed_t, seed_s, dt, ds = k3_planes(c, s_, t_, n, calls)
+            for sweeps in (1, 3, SWEEPS, 20):
+                what = f"K3 {name} after {calls} calls, {sweeps} sweeps"
+                err = max(err, check((c, seed_t, seed_s, dt, ds), sweeps,
+                                     what))
+                check((c, seed_t, None, dt, None), sweeps, what + " ds off")
+        inputs[name] = (c,) + k3_planes(c, s_, t_, n, 0)[:2] * 2
+    args3 = inputs["batch"]
+    tiles_ms = {}
+    for tiles in TILES:
+        key = "{}x{}".format(*tiles)
+        tiles_ms[key] = {}
+        for name, args in inputs.items():
+            check(args, SWEEPS, f"K3 {name} tiles {key}", tiles)
+            tiles_ms[key][name] = time_ms(lambda: _sweeps(
+                *args, SWEEPS, tiles))[0]
+        log(f"[kernels] K3 tiles {key}: batch {tiles_ms[key]['batch']:.4f} "
+            f"ms, board {tiles_ms[key]['board']:.4f} ms")
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for name, args in inputs.items():
+        log(f"[kernels] K3 {name} launch as launch_geometry picks it: "
+            f"{launch_geometry(*args[1].shape, SWEEPS, True, n_sm)}")
+    b_ms, b_by = k3_bound(cap[0].numel(), True)
+    board_ms = time_ms(lambda: bfs_relabel_sweeps(*inputs["board"]))[0]
+    board_bound = k3_bound(bc[0].numel(), True)[0]
+    log(f"[kernels] K3 board: device {board_ms:.4f} ms against its bound "
+        f"{board_bound:.4f} ms ({board_ms / board_bound:.2f}x)")
+    return dict(
+        max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+        sweeps_per_call=SWEEPS, tiles_ms=tiles_ms, board_ms=board_ms,
+        **timings(lambda: bfs_relabel_sweeps(*args3),
+                  lambda: bfs_relabel_sweeps_ref(*args3, sweeps=SWEEPS)))
 
 
 def kernels_assignment_matching(dev) -> dict:
@@ -467,10 +568,14 @@ def counters():
 def reset_counts():
     for f in counters().values():
         f.launches = 0
+    counters()["bfs_relabel_sweeps"].sweeps = 0
 
 
 def read_counts() -> dict:
-    return {name: f.launches for name, f in counters().items()}
+    """Launches per kernel, and K3's sweeps under ``K3_SWEEPS``."""
+    got = {name: f.launches for name, f in counters().items()}
+    got[K3_SWEEPS] = counters()["bfs_relabel_sweeps"].sweeps
+    return got
 
 
 def require_launched(counts: dict, names, phase: str):
@@ -530,11 +635,12 @@ def profile(what: str, wall: float, fn, *a, **kw) -> dict:
     port = {}
     for us, count, key in rows:
         if key.startswith(PORT_KERNEL_SYMBOLS):
-            name = key.split("::", 1)[1].split("(")[0]
-            port[name] = (us / 1e3, count)
-            log(f"[profile]   port kernel {name}: "
-                f"{us / 1e3:.3f} ms over {count} launches, "
-                f"{us / 1e3 / count:.4f} ms each")
+            name = key.split("::", 1)[1].split("(")[0].split("<")[0]
+            ms, n = port.get(name, (0.0, 0))
+            port[name] = (ms + us / 1e3, n + count)
+    for name, (ms, count) in port.items():
+        log(f"[profile]   port kernel {name}: {ms:.3f} ms over {count} "
+            f"launches, {ms / count:.4f} ms each")
     return dict(busy_s=busy, idle_share=1 - busy / wall, launches=launches,
                 port_kernels=port)
 
@@ -574,11 +680,14 @@ def phase_main(dev, problems, oracle, counts: dict):
     require_launched(counts["pallas"], ["grid_push_decide",
                                         "bfs_relabel_sweeps"], "pallas")
     require_launched(counts["xla"], ["bfs_relabel_sweeps"], "xla")
+    in_solve = {}
     for backend in ("pallas", "xla"):
-        profile(f"backend={backend} batch", walls[backend],
-                maxflow_grid_batch, prob, backend=backend, device=dev)
+        prof = profile(f"backend={backend} batch", walls[backend],
+                       maxflow_grid_batch, prob, backend=backend, device=dev)
+        in_solve[backend] = grid_in_solve(backend, prof, counts[backend],
+                                          B * H * W, with_ds=False)
     require_same(results["pallas"], results["xla"], "pallas vs xla")
-    return prob
+    return prob, in_solve
 
 
 def phase_balanced(dev, prob, oracle, counts: dict):
@@ -613,11 +722,39 @@ def phase_balanced(dev, prob, oracle, counts: dict):
                              f"{CHECKERBOARD_WANT}")
     require_launched(counts["balanced_checkerboard"], balanced,
                      "balanced checkerboard")
-    profile("backend=balanced batch", batch_wall, maxflow_grid_batch, prob,
-            backend="balanced", device=dev)
-    profile(f"backend=balanced checkerboard {CHECKERBOARD}", board_wall,
-            maxflow_grid, board, backend="balanced", max_rounds=500_000,
-            device=dev)
+    prof = profile("backend=balanced batch", batch_wall, maxflow_grid_batch,
+                   prob, backend="balanced", device=dev)
+    in_solve = {"balanced_batch": grid_in_solve(
+        "balanced_batch", prof, counts["balanced_batch"], B * H * W,
+        with_ds=True)}
+    prof = profile(f"backend=balanced checkerboard {CHECKERBOARD}",
+                   board_wall, maxflow_grid, board, backend="balanced",
+                   max_rounds=500_000, device=dev)
+    in_solve["balanced_checkerboard"] = grid_in_solve(
+        "balanced_checkerboard", prof, counts["balanced_checkerboard"],
+        CHECKERBOARD[0] * CHECKERBOARD[1], with_ds=True)
+    return in_solve
+
+
+def grid_in_solve(what: str, prof: dict, counts: dict, nodes: int,
+                  with_ds: bool) -> dict:
+    """The port's kernels inside one profiled grid solve: device ms,
+    launches and ms per launch; for K3 also the solve's sweeps (from the
+    counters of its unprofiled run) and the bound per call (``k3_bound``:
+    the sink-only ``bfs_heights`` relaxes ``dt`` alone, the balanced
+    relabel both planes), which is logged and not returned. Adds the
+    solve's busy seconds and idle share."""
+    out = dict(busy_s=prof["busy_s"], idle_share=prof["idle_share"])
+    for name, (ms, n) in prof["port_kernels"].items():
+        out[name] = dict(ms=ms, launches=n, ms_per_launch=ms / n)
+        if name.startswith("bfs_relabel_sweep"):
+            b_ms = k3_bound(nodes, with_ds)[0]
+            out[name]["sweeps"] = counts[K3_SWEEPS]
+            log(f"[k3] {what}: {counts['bfs_relabel_sweeps']} launches, "
+                f"{counts[K3_SWEEPS]} sweeps; {ms:.3f} ms in the solve, "
+                f"{ms / n:.4f} ms per launch against {b_ms:.4f} ms per call "
+                f"({ms / n / b_ms:.2f}x the bound)")
+    return out
 
 
 def solve_in_turns(what: str, dev, counts: dict, check, fn, *a,
@@ -899,14 +1036,25 @@ def main() -> int:
     oracle = [maxflow_grid_ref(*p) for p in problems]
     log(f"[main] scipy oracle flows {oracle}")
     counts = {}
-    prob = phase_main(dev, problems, oracle, counts)
-    phase_balanced(dev, prob, oracle, counts)
+    prob, in_solve = phase_main(dev, problems, oracle, counts)
+    in_solve.update(phase_balanced(dev, prob, oracle, counts))
     phase_assignment(dev, counts)
     phase_matching(dev, counts)
     serve = phase_serve(dev, counts)
     k6 = serve["prefill"]["port_kernels"]
     kernels["flash_attention_fwd"]["prefill_ms_per_launch"] = (
         sum(ms for ms, _ in k6.values()) / sum(n for _, n in k6.values()))
+    # K1-K3 inside each profiled grid solve, under the wrapper's name
+    for name, symbol in (("grid_push_decide", "grid_push_decide_kernel"),
+                         ("grid_push_decide_sched",
+                          "grid_push_decide_sched_kernel"),
+                         ("bfs_relabel_sweeps", "bfs_relabel_sweep_tiles")):
+        kernels[name]["in_solve"] = {k: v[symbol] for k, v in in_solve.items()
+                                     if symbol in v}
+    kernels["bfs_relabel_sweeps"]["sweeps_per_solve"] = {
+        k: c[K3_SWEEPS] for k, c in counts.items() if c[K3_SWEEPS]}
+    busy = {k: (v["busy_s"], v["idle_share"]) for k, v in in_solve.items()}
+    log(f"[grid] device busy (s) and idle share per solve: {busy}")
 
     # max_abs_err, ms, plain_ms, library_ms, bound_ms, bound_by (+ details;
     # K6 replaces equal with its tolerance) come from phase_kernels;

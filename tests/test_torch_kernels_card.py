@@ -22,6 +22,7 @@ from repro_torch.core.matching.ref import random_bipartite
 from repro_torch.core.maxflow.grid import (INF_H, GridProblem,
                                            maxflow_grid_batch)
 from repro_torch.core.maxflow.ref import (checkerboard_problem,
+                                          long_path_problem,
                                           random_grid_problem)
 from repro_torch.kernels.bfs_relabel import kernel as bk
 from repro_torch.kernels.bfs_relabel.ref import bfs_relabel_sweeps_ref
@@ -71,12 +72,24 @@ def test_k1_kernel_equals_plain(cuda_device):
     assert all(bits_equal(g, w) for g, w in zip(got, want))
 
 
-@pytest.mark.parametrize("H,W", [(256, 200), (100, 128)])
-def test_k2_kernel_equals_plain(cuda_device, H, W):
-    e, h, cap, cs, ct, n = _inputs(cuda_device, H=H, W=W)
-    e[:, :64] = 0                      # idle tiles
+@pytest.mark.parametrize("B,H,W", [(4, 512, 512), (1, 256, 256),
+                                   (2, 256, 200), (2, 100, 128)])
+@pytest.mark.parametrize("active", ["some", "none", "all"])
+def test_k2_kernel_equals_plain(cuda_device, B, H, W, active):
+    """K2 against its plain version and against K1, with idle tiles, with
+    no tile active and with every tile active."""
+    e, h, cap, cs, ct, n = _inputs(cuda_device, B=B, H=H, W=W)
+    if active == "some":
+        e[:, :64] = 0                  # idle tiles
+    elif active == "none":
+        e.zero_()
+    else:
+        e[:, ::16, ::16] = 1.0         # a node with excess in every tile
     bh, bw = tile_shape(H, W)
     sched, nact = tile_schedule(e > 0, bh, bw)
+    T = (H // bh) * (W // bw)
+    if active != "some":
+        assert nact.tolist() == [0 if active == "none" else T] * B
     args = (e, h, cap, cs, ct, sched, nact, n)
     before = gk.grid_push_decide_sched.launches
     got = gk.grid_push_decide_sched(*args, block_h=bh, block_w=bw)
@@ -84,28 +97,117 @@ def test_k2_kernel_equals_plain(cuda_device, H, W):
     assert gk.grid_push_decide_sched.launches == before + 1
     want = grid_push_decide_sched_ref(*args, bh, bw)
     assert all(bits_equal(g, w) for g, w in zip(got, want))
+    k1 = gk.grid_push_decide(e, h, cap, cs, ct, n)
+    assert all(bits_equal(g, w) for g, w in zip(got, k1))
 
 
-@pytest.mark.parametrize("sweeps,with_ds", [(8, True), (3, False), (1, True)])
-def test_k3_kernel_equals_plain(cuda_device, sweeps, with_ds):
-    B, H, W = 2, 200, 136
+# K3 shapes (B, H, W): 1 x 1, 3 x 5, one row, one column, B = 2, the
+# checkerboard's 256^2 alone, a ragged 513 x 65, a height below every tile
+K3_SHAPES = [(1, 1, 1), (1, 3, 5), (1, 1, 300), (1, 300, 1), (2, 200, 136),
+             (1, 256, 256), (1, 513, 65), (1, 5, 200)]
+
+
+def _k3_inputs(dev, B, H, W, maker=random_grid_problem, calls=0):
+    """(cap, seed_t, seed_s, dt, ds) on ``dev``: the planes after ``calls``
+    plain calls of 8 sweeps from the seeds, so that wavefronts cross tile
+    edges inside the next call."""
     rng = np.random.default_rng(1)
-    cap, cs, ct = _stack([random_grid_problem(rng, H, W) for _ in range(B)])
+    if maker is random_grid_problem:
+        probs = [random_grid_problem(rng, H, W) for _ in range(B)]
+    else:
+        probs = [maker(H, W) for _ in range(B)]
+    cap, cs, ct = _stack(probs)
     n = H * W + 2
-    t = lambda a: torch.tensor(a, device=cuda_device)  # noqa: E731
+    t = lambda a: torch.tensor(a, device=dev)  # noqa: E731
     cap = t(cap)
     seed_t = t(np.where(ct > 0, 1, INF_H).astype(np.int32))
     seed_s = t(np.where(cs > 0, n + 1, INF_H).astype(np.int32))
-    if not with_ds:
-        seed_s = None
-    args = (cap, seed_t, seed_s, seed_t, seed_s)
-    before = bk.bfs_relabel_sweeps.launches
-    got = bk.bfs_relabel_sweeps(*args, sweeps=sweeps)
+    dt, ds = seed_t, seed_s
+    for _ in range(calls):
+        dt, ds, _ = bfs_relabel_sweeps_ref(cap, seed_t, seed_s, dt, ds,
+                                           sweeps=bk.SWEEPS)
+    return cap, seed_t, seed_s, dt, ds
+
+
+def _k3_check(args, sweeps, tiles=None):
+    """One K3 call against the plain version, bitwise, with its counters:
+    one launch per chunk of up to R_MAX sweeps, every sweep counted. With
+    ``tiles`` the launch takes that tile shape instead of
+    ``launch_geometry``'s."""
+    launches = bk.bfs_relabel_sweeps.launches
+    swept = bk.bfs_relabel_sweeps.sweeps
+    got = bk._sweeps(*args, sweeps, tiles)
     torch.cuda.synchronize()
-    assert bk.bfs_relabel_sweeps.launches == before + sweeps
+    assert bk.bfs_relabel_sweeps.launches == launches + -(-sweeps
+                                                          // bk.R_MAX)
+    assert bk.bfs_relabel_sweeps.sweeps == swept + sweeps
     want = bfs_relabel_sweeps_ref(*args, sweeps=sweeps)
     for g, w in zip(got, want):
         assert (g is None and w is None) or bits_equal(g, w)
+
+
+@pytest.mark.parametrize("shape", K3_SHAPES)
+@pytest.mark.parametrize("sweeps", [1, 2, 3, 7, 8, 20])
+@pytest.mark.parametrize("with_ds", [True, False])
+def test_k3_kernel_equals_plain(cuda_device, shape, sweeps, with_ds):
+    cap, seed_t, seed_s, dt, ds = _k3_inputs(cuda_device, *shape)
+    if not with_ds:
+        seed_s = ds = None
+    _k3_check((cap, seed_t, seed_s, dt, ds), sweeps)
+
+
+@pytest.mark.parametrize("tiles", bk.TILES)
+@pytest.mark.parametrize("maker,shape,calls", [
+    (random_grid_problem, (2, 200, 136), 2),
+    (long_path_problem, (1, 256, 256), 5),
+    (checkerboard_problem, (1, 256, 256), 3),
+    (random_grid_problem, (1, 513, 65), 1)])
+def test_k3_chained_inputs_every_tile_shape(cuda_device, tiles, maker, shape,
+                                            calls):
+    """Mid-fixpoint planes (not the seeds), under every tile shape the
+    kernel is launched with, for 8 and 20 sweeps, with ds on and off."""
+    cap, seed_t, seed_s, dt, ds = _k3_inputs(cuda_device, *shape,
+                                             maker=maker, calls=calls)
+    for sweeps in (8, 20):
+        _k3_check((cap, seed_t, seed_s, dt, ds), sweeps, tiles)
+        _k3_check((cap, seed_t, None, dt, None), sweeps, tiles)
+
+
+@pytest.mark.parametrize("field,delta", [("threads", -32),
+                                         ("smem_bytes", 4)])
+def test_k3_refuses_a_geometry_it_would_not_launch_as_given(
+        cuda_device, monkeypatch, field, delta):
+    """The C entry launches with the threads and shared memory of
+    ``geometry`` and refuses values that do not fit the tile."""
+    cap, seed_t, seed_s, dt, ds = _k3_inputs(cuda_device, 1, 64, 64)
+    geometry = bk.geometry
+    monkeypatch.setattr(bk, "geometry", lambda *a: geometry(*a)._replace(
+        **{field: getattr(geometry(*a), field) + delta}))
+    with pytest.raises(RuntimeError, match="bfs_relabel_sweeps"):
+        bk._sweeps(cap, seed_t, seed_s, dt, ds, bk.SWEEPS, bk.TILES[0])
+
+
+def test_k3_changed_flag(cuda_device):
+    """A call at the fixpoint reports 0; a call whose only move is one cell
+    next to a tile edge (raised by one above its fixpoint) reports 1."""
+    B, H, W = 1, 256, 256
+    cap, seed_t, seed_s, dt, ds = _k3_inputs(cuda_device, B, H, W)
+    changed = True
+    while changed:
+        dt, ds, flag = bfs_relabel_sweeps_ref(cap, seed_t, seed_s, dt, ds,
+                                              sweeps=bk.SWEEPS)
+        changed = bool(flag)
+    _, _, flag = bk.bfs_relabel_sweeps(cap, seed_t, seed_s, dt, ds)
+    assert int(flag) == 0
+    g = bk.launch_geometry(B, H, W, bk.SWEEPS, True)
+    i = g.tile_h                       # the first row of the next tile row
+    j = int(torch.nonzero(dt[0, i] < INF_H)[0])
+    bumped = dt.clone()
+    bumped[0, i, j] += 1
+    got_t, got_s, flag = bk.bfs_relabel_sweeps(cap, seed_t, seed_s, bumped,
+                                               ds)
+    assert int(flag) == 1
+    assert bits_equal(got_t, dt) and bits_equal(got_s, ds)
 
 
 @pytest.mark.parametrize("backend", ["xla", "multipush", "pallas",
