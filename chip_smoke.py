@@ -17,10 +17,11 @@ Drives ``src/repro_torch`` only (no ``jax``, nothing of ``repro``):
    as its one-call yardstick) and K5 ``frontier`` at the matching path's
    (4 x 4096^2, with ``torch.min`` over a packed key as its yardstick);
    K6 ``flash_attention_fwd`` within 3e-5 (float32) and 2e-2 (bfloat16)
-   of its plain version over the JAX kernel test's sweep and at the serve
-   path's prefill shape (8 x 1024 tokens, 9 heads over 3 kv heads, dh 64,
-   causal, float32), with ``F.scaled_dot_product_attention`` timed as its
-   yardstick;
+   of its plain version over the JAX kernel test's sweep, tails and head
+   widths off its tiles (``FLASH_TAILS``) and at the serve path's prefill
+   shape (8 x 1024 tokens, 9 heads over 3 kv heads, dh 64, causal, float32
+   and bfloat16), with ``F.scaled_dot_product_attention`` timed as its
+   yardstick; K5 is timed once more with the L2 flushed before every call;
 3. drives the grid path, ``maxflow_grid_batch`` on 4 seeded
    ``random_grid_problem`` instances of 512 x 512, with ``backend="pallas"``
    and ``backend="xla"``: both converge, match the scipy oracle, satisfy
@@ -41,8 +42,10 @@ Drives ``src/repro_torch`` only (no ``jax``, nothing of ``repro``):
    ``make_serve_step``, a warm-up and two timed runs. Each run's tokens and
    logits are held to the JAX package's top-5 per step and request
    (``tests/torch_smoke_serve.json``, see ``check_serve``); K6 must launch
-   once per layer in each prefill and never in a decode step. Matmuls stay
-   in full float32 (``torch.backends.cuda.matmul.allow_tf32`` is False);
+   once per layer in each prefill, every launch of the profiled prefill on
+   the wgmma kernel ``flash_fwd_wgmma``, and never in a decode step.
+   Matmuls stay in full float32 (``torch.backends.cuda.matmul.allow_tf32``
+   is False);
 8. reads the launch counts of every solve of phases 3 to 7 (each set to 0
    just before its solve and read just after) and fails if a kernel of
    that solve was never launched, or if K4 or K5 was launched by an
@@ -62,6 +65,7 @@ import pathlib
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -113,8 +117,27 @@ FLASH_SWEEP = [
     ((2, 64, 64, 4, 2, 16, 16), True, torch.bfloat16),
 ]
 FLASH_TOL = {torch.float32: 3e-5, torch.bfloat16: 2e-2}
+# K6 in float32 and bfloat16, besides the serve shape: (B, Sq, Sk, H, KV,
+# dh, dv), causal, dtype -- Sq and Sk off the 64-row query and 64/32-key
+# tiles, Sq != Sk both ways, MQA, every head-width class
+FLASH_TAILS = [
+    ((1, 100, 1000, 4, 1, 64, 64), False, torch.float32),
+    ((1, 1000, 100, 4, 2, 64, 64), True, torch.float32),
+    ((2, 77, 77, 4, 2, 8, 8), True, torch.float32),
+    ((1, 100, 100, 4, 2, 24, 24), False, torch.float32),
+    ((1, 100, 100, 4, 2, 72, 72), True, torch.float32),
+    ((1, 129, 129, 4, 2, 192, 128), False, torch.float32),
+    ((1, 100, 100, 2, 2, 256, 256), True, torch.float32),
+    ((1, 100, 1000, 4, 1, 72, 40), False, torch.bfloat16),
+    ((1, 65, 65, 2, 1, 256, 256), True, torch.bfloat16),
+]
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 FP32_OPS_PER_S = 67e12         # H100 SXM non-tensor 32-bit rate (data sheet)
+# H100 SXM dense tensor-core rates (data sheet): K6 runs a float32 product
+# as three TF32 products, a bfloat16 one as one bf16 product
+TF32_OPS_PER_S = 495e12
+BF16_OPS_PER_S = 989e12
+L2_FLUSH_BYTES = 128 << 20     # written between calls to time K5 L2-cold
 KERNEL_SOURCES = {
     "grid_push_decide": ("src/repro_torch/kernels/csrc/grid_push.cu",
                          "src/repro/kernels/grid_push/kernel.py:116"),
@@ -140,7 +163,7 @@ K3_SWEEPS = "bfs_relabel_sweeps.sweeps"   # K3's sweep count in read_counts
 PORT_KERNEL_SYMBOLS = tuple(
     f"{p}(anonymous namespace)::{k}" for p in ("", "void ")
     for k in ("grid_push_decide", "bfs_relabel_sweep", "bidding_kernel",
-              "frontier_", "flash_fwd_kernel"))
+              "frontier_", "flash_fwd_"))
 
 
 def device_events(prof):
@@ -155,18 +178,51 @@ def device_events(prof):
                    and ev.self_device_time_total > 0), reverse=True)
 
 
-def time_ms(fn, reps: int = 50) -> tuple[float, float]:
-    """``(device ms, loop ms)`` per call of ``fn()``, after a warm-up call.
+class Timing(NamedTuple):
+    """One timing of ``time_ms`` or ``time_cold_ms``."""
+    ms: float        # device ms per call
+    loop_ms: float | None  # CUDA events around the loop, per call
+    source: str      # where ``ms`` came from: "profiler", "loop", "events"
 
-    Device ms is the device time of every kernel that ``reps`` calls ran,
-    from ``torch.profiler``, over ``reps``: the work on the card, without
-    the host's launch overhead. Loop ms is CUDA events around a Python loop
-    of ``reps`` calls, so it also holds the host's launch rate when that is
-    slower than the card. A profiler session that records no device event
-    at all (seen now and then after many sessions in one process) is run
-    once more before this fails."""
+
+def profiled_ms(run, reps: int, symbol: str | None = None,
+                only_symbol: bool = False) -> float | None:
+    """Device ms per call of ``run(i)``, ``i`` in ``range(reps)``, from
+    ``torch.profiler``: the self device time of every device event (only
+    of kernels whose name holds ``symbol`` with ``only_symbol``) over
+    ``reps``. Now and then, after many profiled runs in one process, a
+    run records no device event at all, or a third of a kernel's
+    launches, or misses one launch of a window; so a run counts only when
+    every kind of event it times was seen at least 0.9 ``reps`` times,
+    kernels holding ``symbol`` among them. Up to three runs; None when
+    none counted."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
+    for _ in range(3):
+        with torch_profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA],
+                           acc_events=True) as prof:
+            for i in range(reps):
+                run(i)
+            torch.cuda.synchronize()
+        rows = [r for r in device_events(prof)
+                if not only_symbol or symbol in r[2]]
+        if (rows and all(r[1] >= 0.9 * reps for r in rows)
+                and (symbol is None or any(symbol in r[2] for r in rows))):
+            return sum(r[0] for r in rows) / 1e3 / reps
+    return None
+
+
+def time_ms(fn, reps: int = 50, symbol: str | None = None) -> Timing:
+    """Device and loop ms per call of ``fn()``, after a warm-up call.
+
+    Device ms is the device time of every kernel that ``reps`` calls ran
+    (``profiled_ms``; ``symbol`` names the kernel a wrapper launches): the
+    work on the card, without the host's launch overhead. Loop ms is CUDA
+    events around a Python loop of ``reps`` calls, so it also holds the
+    host's launch rate when that is slower than the card. When no profiler
+    run counts, device ms is the loop ms, an upper bound: ``source``
+    says "loop" and a line says so."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -177,23 +233,56 @@ def time_ms(fn, reps: int = 50) -> tuple[float, float]:
     stop.record()
     torch.cuda.synchronize()
     loop_ms = start.elapsed_time(stop) / reps
-    for _ in range(2):
-        with torch_profile(activities=[ProfilerActivity.CPU,
-                                       ProfilerActivity.CUDA],
-                           acc_events=True) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        device_ms = sum(r[0] for r in device_events(prof)) / 1e3 / reps
-        if device_ms > 0:
-            return device_ms, loop_ms
-    raise AssertionError("torch.profiler saw no device time")
+    ms = profiled_ms(lambda i: fn(), reps, symbol)
+    if ms is not None:
+        return Timing(ms, loop_ms, "profiler")
+    log(f"[time] no torch.profiler run saw every device event for 0.9 "
+        f"of the calls: device ms is the loop's {loop_ms:.4f} ms")
+    return Timing(loop_ms, loop_ms, "loop")
 
 
-def bound(nbytes: float, nops: float) -> tuple[float, str]:
-    """Least time (ms) for moving ``nbytes`` and doing ``nops`` ops."""
+def time_cold_ms(fn, symbol: str, reps: int = 50) -> Timing:
+    """Device ms per call of ``fn()`` with a cold L2: ``L2_FLUSH_BYTES``
+    are written before every call, and only the device time of kernels
+    whose name holds ``symbol`` is counted (not the flush). When no
+    profiled run counts (see ``profiled_ms``), CUDA events around each
+    call give the time: ``source`` says "events" and a line says so."""
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+
+    def run(i):
+        flush.fill_(i & 255)
+        fn()
+    run(0)
+    torch.cuda.synchronize()
+    ms = profiled_ms(run, reps, symbol, only_symbol=True)
+    if ms is not None:
+        return Timing(ms, None, "profiler")
+    marks = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for i, (start, stop) in enumerate(marks):
+        flush.fill_(i & 255)
+        start.record()
+        fn()
+        stop.record()
+    torch.cuda.synchronize()
+    ms = sum(a.elapsed_time(b) for a, b in marks) / reps
+    log(f"[time] no torch.profiler run saw {symbol} kernels for 0.9 of "
+        f"the calls: {ms:.4f} ms from CUDA events around each call")
+    return Timing(ms, None, "events")
+
+
+def took(row: dict, key: str, t: Timing) -> float:
+    """``t.ms``, with its source noted as ``row["ms_from"][key]``."""
+    row.setdefault("ms_from", {})[key] = t.source
+    return t.ms
+
+
+def bound(nbytes: float, nops: float,
+          ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
+    """Least time (ms) for moving ``nbytes`` and doing ``nops`` ops at
+    ``ops_per_s``."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / FP32_OPS_PER_S * 1e3
+    t_ops = nops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -251,7 +340,8 @@ def matching_adjacency() -> np.ndarray:
 
 
 def phase_kernels(dev, card: str) -> dict:
-    """Each kernel against its plain version, bitwise, with timings."""
+    """Each kernel against its plain version, bitwise (K6 within its
+    tolerance), with timings."""
     from repro_torch.kernels.grid_push.kernel import (grid_push_decide,
                                                       grid_push_decide_sched)
     from repro_torch.kernels.grid_push.ops import tile_schedule, tile_shape
@@ -270,7 +360,7 @@ def phase_kernels(dev, card: str) -> dict:
     out["grid_push_decide"] = dict(
         max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
         **timings(lambda: grid_push_decide(*args),
-                  lambda: grid_push_decide_ref(*args)))
+                  lambda: grid_push_decide_ref(*args), "grid_push_decide"))
 
     # K2: some tiles active, some not (whole 64x64 tiles of e zeroed).
     bh, bw = tile_shape(H, W)
@@ -298,13 +388,15 @@ def phase_kernels(dev, card: str) -> dict:
     b_ms, b_by = bound(60 * active_nodes + 32 * (nodes - active_nodes)
                        + 4 * (sched.numel() + n_act.numel()),
                        30 * active_nodes)
-    out["grid_push_decide_sched"] = dict(
+    row = out["grid_push_decide_sched"] = dict(
         max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
         active_tiles=int(n_act.sum()), tiles=int(sched.numel()),
-        board_ms=time_ms(lambda: grid_push_decide_sched(*board_args,
-                                                        **board_kw))[0],
         **timings(lambda: grid_push_decide_sched(*args2, **kw),
-                  lambda: grid_push_decide_sched_ref(*args2, bh, bw)))
+                  lambda: grid_push_decide_sched_ref(*args2, bh, bw),
+                  "grid_push_decide"))
+    row["board_ms"] = took(row, "board_ms", time_ms(
+        lambda: grid_push_decide_sched(*board_args, **board_kw),
+        symbol="grid_push_decide"))
     # grid_push.cu's launch: one block per 256-node chunk of every tile of
     # every instance (the formula, not a reading of the launch)
     log(f"[kernels] K2 launch by grid_push.cu's formula: "
@@ -398,14 +490,19 @@ def kernels_k3(dev, cap, cs, ct, n_nodes) -> dict:
                 check((c, seed_t, None, dt, None), sweeps, what + " ds off")
         inputs[name] = (c,) + k3_planes(c, s_, t_, n, 0)[:2] * 2
     args3 = inputs["batch"]
+    row = timings(lambda: bfs_relabel_sweeps(*args3),
+                  lambda: bfs_relabel_sweeps_ref(*args3, sweeps=SWEEPS),
+                  "bfs_relabel_sweep")
     tiles_ms = {}
     for tiles in TILES:
         key = "{}x{}".format(*tiles)
         tiles_ms[key] = {}
         for name, args in inputs.items():
             check(args, SWEEPS, f"K3 {name} tiles {key}", tiles)
-            tiles_ms[key][name] = time_ms(lambda: _sweeps(
-                *args, SWEEPS, tiles))[0]
+            tiles_ms[key][name] = took(
+                row, f"tiles_ms.{key}.{name}",
+                time_ms(lambda: _sweeps(*args, SWEEPS, tiles),
+                        symbol="bfs_relabel_sweep"))
         log(f"[kernels] K3 tiles {key}: batch {tiles_ms[key]['batch']:.4f} "
             f"ms, board {tiles_ms[key]['board']:.4f} ms")
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -413,15 +510,15 @@ def kernels_k3(dev, cap, cs, ct, n_nodes) -> dict:
         log(f"[kernels] K3 {name} launch as launch_geometry picks it: "
             f"{launch_geometry(*args[1].shape, SWEEPS, True, n_sm)}")
     b_ms, b_by = k3_bound(cap[0].numel(), True)
-    board_ms = time_ms(lambda: bfs_relabel_sweeps(*inputs["board"]))[0]
+    board_ms = took(row, "board_ms",
+                    time_ms(lambda: bfs_relabel_sweeps(*inputs["board"]),
+                            symbol="bfs_relabel_sweep"))
     board_bound = k3_bound(bc[0].numel(), True)[0]
     log(f"[kernels] K3 board: device {board_ms:.4f} ms against its bound "
         f"{board_bound:.4f} ms ({board_ms / board_bound:.2f}x)")
-    return dict(
-        max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
-        sweeps_per_call=SWEEPS, tiles_ms=tiles_ms, board_ms=board_ms,
-        **timings(lambda: bfs_relabel_sweeps(*args3),
-                  lambda: bfs_relabel_sweeps_ref(*args3, sweeps=SWEEPS)))
+    return dict(max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+                sweeps_per_call=SWEEPS, tiles_ms=tiles_ms,
+                board_ms=board_ms, **row)
 
 
 def kernels_assignment_matching(dev) -> dict:
@@ -450,11 +547,12 @@ def kernels_assignment_matching(dev) -> dict:
     # c and mask read once (5 B per entry), p_y read and 3 outputs written
     # (16 B per row); about 4 integer ops per entry
     b_ms, b_by = bound(5 * B * n * n + 16 * B * n, 4 * B * n * n)
-    out["bidding"] = dict(
+    row = out["bidding"] = dict(
         max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(lambda: torch.topk(masked, 2, dim=-1,
-                                              largest=False))[0],
-        **timings(lambda: bidding(*args), lambda: bidding_ref(*args)))
+        **timings(lambda: bidding(*args), lambda: bidding_ref(*args),
+                  "bidding_kernel"))
+    row["library_ms"] = took(row, "library_ms", time_ms(
+        lambda: torch.topk(masked, 2, dim=-1, largest=False)))
 
     # K5 on the matching phase's graphs, half the rows labeled with roots
     # drawn from the rows, random matched columns
@@ -475,11 +573,20 @@ def kernels_assignment_matching(dev) -> dict:
     # about 4 ops per entry read
     need = int(labeled.sum()) * n
     b_ms, b_by = bound(need + 8 * B * n + 8 * B * n, 4 * need)
-    out["frontier"] = dict(
+    row = out["frontier"] = dict(
         max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
         labeled_rows=int(labeled.sum()), rows=B * n,
-        library_ms=time_ms(lambda: torch.min(key, dim=-2))[0],
-        **timings(lambda: frontier(*args5), lambda: frontier_ref(*args5)))
+        **timings(lambda: frontier(*args5), lambda: frontier_ref(*args5),
+                  "frontier_"))
+    row["library_ms"] = took(row, "library_ms",
+                             time_ms(lambda: torch.min(key, dim=-2)))
+    # the labeled rows' adjacency (half of 67 MB) fits in the 50 MB L2
+    # across the repeated calls of the time above; time it from cold too
+    cold = row["cold_ms"] = took(row, "cold_ms", time_cold_ms(
+        lambda: frontier(*args5), "frontier_"))
+    log(f"[kernels] K5 L2-warm {row['ms']:.4f} ms, L2-cold "
+        f"{cold:.4f} ms ({L2_FLUSH_BYTES >> 20} MB written before each "
+        f"call); bound {b_ms:.4f} ms")
     return out
 
 
@@ -492,22 +599,48 @@ def flash_inputs(rng, dims, dtype, dev):
                                (B, Sk, KV, dv)))
 
 
+def flash_bounds(dims, causal: bool, dtype) -> dict:
+    """K6's least time at ``dims``: q, k, v read and o written once, and
+    2*dh + 2*dv flops per (query, key) pair (pos_q >= pos_k when causal)
+    at the rate of the units the kernel runs them on (float32: three TF32
+    products each; bfloat16: one bf16 product), and at the FFMA rate the
+    first design ran on (``ffma_ms``)."""
+    B, Sq, Sk, H, KV, dh, dv = dims
+    es = 4 if dtype == torch.float32 else 2
+    if causal:
+        pairs = B * H * sum(min(i + 1, Sk) for i in range(Sq))
+    else:
+        pairs = B * H * Sq * Sk
+    flops = pairs * (2 * dh + 2 * dv)
+    nbytes = es * (B * Sq * H * (dh + dv) + B * Sk * KV * (dh + dv))
+    if dtype == torch.float32:
+        b_ms, b_by = bound(nbytes, 3 * flops, TF32_OPS_PER_S)
+    else:
+        b_ms, b_by = bound(nbytes, flops, BF16_OPS_PER_S)
+    return dict(bound_ms=b_ms, bound_by=b_by, causal_pairs=pairs,
+                ffma_ms=bound(nbytes, flops)[0])
+
+
 def kernels_flash(dev) -> dict:
-    """K6 against its plain version over FLASH_SWEEP and at the serve
-    path's prefill shape (max abs error within FLASH_TOL), with timings and
-    ``F.scaled_dot_product_attention`` (causal, GQA, on the head-major
-    views) as its one-call yardstick, timed only."""
+    """K6 against its plain version over FLASH_SWEEP, FLASH_TAILS and at
+    the serve path's prefill shape in float32 and bfloat16 (max abs error
+    within FLASH_TOL), with timings and ``F.scaled_dot_product_attention``
+    (causal, GQA, on the head-major views) as its one-call yardstick, timed
+    only."""
     import torch.nn.functional as F
 
     from repro_torch.configs.base import get_config
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_fwd, launch_geometry)
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     rng = np.random.default_rng(SEED + 2)
     cfg = get_config(SERVE_ARCH)
-    main = ((SERVE_B, SERVE_S, SERVE_S, cfg.n_heads, cfg.n_kv_heads, cfg.dh,
-             cfg.dh), True, torch.float32)
+    serve = (SERVE_B, SERVE_S, SERVE_S, cfg.n_heads, cfg.n_kv_heads, cfg.dh,
+             cfg.dh)
+    cases = FLASH_SWEEP + FLASH_TAILS + [(serve, True, torch.bfloat16),
+                                         (serve, True, torch.float32)]
     sweep = []
-    for dims, causal, dtype in FLASH_SWEEP + [main]:
+    for dims, causal, dtype in cases:
         q, k, v = flash_inputs(rng, dims, dtype, dev)
         got = flash_attention_fwd(q, k, v, causal=causal)
         want = flash_attention_ref(q, k, v, causal=causal)
@@ -521,12 +654,19 @@ def kernels_flash(dev) -> dict:
                           dtype=str(dtype).split(".")[1], max_abs_err=err))
         log(f"[kernels] K6 {dims} causal={causal} {dtype}: max abs err "
             f"{err:.3g} (tolerance {FLASH_TOL[dtype]})")
-    B, Sq, Sk, H, KV, dh, dv = main[0]
-    # causal pairs pos_q >= pos_k, 2*dh + 2*dv flops each; q, k, v read and
-    # o written once (float32)
-    pairs = B * H * Sq * (Sq + 1) // 2
-    b_ms, b_by = bound(4 * (q.numel() + k.numel() + v.numel() + got.numel()),
-                       pairs * (2 * dh + 2 * dv))
+        if dims == serve and dtype == torch.bfloat16:
+            bf16 = time_ms(lambda: flash_attention_fwd(q, k, v, causal=True),
+                           symbol="flash_fwd_")
+            bf16_bound = flash_bounds(dims, True, dtype)
+            log(f"[kernels] K6 bfloat16 at the serve shape: device "
+                f"{bf16.ms:.4f} ms, bound {bf16_bound['bound_ms']:.4f} ms by "
+                f"{bf16_bound['bound_by']}")
+    geo = launch_geometry(serve[0], serve[1], serve[3], serve[5], serve[6])
+    log(f"[kernels] K6 serve launch as launch_geometry picks it: {geo}")
+    b = flash_bounds(serve, True, torch.float32)
+    log(f"[kernels] K6 serve bounds: {b['bound_ms']:.4f} ms by "
+        f"{b['bound_by']} (split TF32), {b['ffma_ms']:.4f} ms at the FFMA "
+        f"rate")
     qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
 
     def library():
@@ -535,22 +675,26 @@ def kernels_flash(dev) -> dict:
     lib_err = (library().transpose(1, 2) - want).abs().max().item()
     log(f"[kernels] K6 yardstick scaled_dot_product_attention: max abs "
         f"diff {lib_err:.3g} from the plain version (timed only)")
-    return {"flash_attention_fwd": dict(
-        equal=False, tolerance=FLASH_TOL[torch.float32],
-        max_abs_err=sweep[-1]["max_abs_err"], bound_ms=b_ms, bound_by=b_by,
-        causal_pairs=pairs, sweep=sweep,
-        library_ms=time_ms(library)[0],
-        **timings(lambda: flash_attention_fwd(q, k, v, causal=True),
-                  lambda: flash_attention_ref(q, k, v, causal=True)))}
+    row = dict(equal=False, tolerance=FLASH_TOL[torch.float32],
+               max_abs_err=sweep[-1]["max_abs_err"], bound_ms=b["bound_ms"],
+               bound_by=b["bound_by"], causal_pairs=b["causal_pairs"],
+               sweep=sweep,
+               **timings(lambda: flash_attention_fwd(q, k, v, causal=True),
+                         lambda: flash_attention_ref(q, k, v, causal=True),
+                         "flash_fwd_"))
+    row["bf16_ms"] = took(row, "bf16_ms", bf16)
+    row["library_ms"] = took(row, "library_ms", time_ms(library))
+    return {"flash_attention_fwd": row}
 
 
-def timings(kernel, plain) -> dict:
-    """Device and loop ms per call of a kernel's wrapper and its plain
-    version (see ``time_ms``)."""
-    ms, loop_ms = time_ms(kernel)
-    plain_ms, plain_loop_ms = time_ms(plain)
-    return dict(ms=ms, plain_ms=plain_ms, loop_ms=loop_ms,
-                plain_loop_ms=plain_loop_ms)
+def timings(kernel, plain, symbol: str) -> dict:
+    """Device and loop ms per call of a kernel's wrapper, whose kernel's
+    name holds ``symbol``, and of its plain version (see ``time_ms``), with
+    where each device ms came from (``ms_from``)."""
+    k, p = time_ms(kernel, symbol=symbol), time_ms(plain)
+    return dict(ms=k.ms, plain_ms=p.ms, loop_ms=k.loop_ms,
+                plain_loop_ms=p.loop_ms,
+                ms_from={"ms": k.source, "plain_ms": p.source})
 
 
 def counters():
@@ -1002,6 +1146,11 @@ def phase_serve(dev, counts: dict) -> dict:
                          device=dev)
     pre = profile("serve prefill 8 x 1024", t_pre, make_prefill_step(model),
                   prompts, caches)
+    # every K6 launch of the prefill on the wgmma kernel
+    k6 = {name: n for name, (_, n) in pre["port_kernels"].items()}
+    if k6 != {"flash_fwd_wgmma": cfg.n_layers}:
+        raise AssertionError(f"serve prefill: port kernels {k6}, not "
+                             f"{cfg.n_layers} launches of flash_fwd_wgmma")
     dec = profile("serve decode step", t_step, make_serve_step(model), state)
     return dict(walls=walls, prefill=pre, decode=dec)
 

@@ -11,6 +11,8 @@ backward yet, so it refuses inputs that autograd tracks.
 from __future__ import annotations
 
 import ctypes
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -19,9 +21,82 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _PROTOS = {"flash_attention_fwd": [_P] * 4 + [_I] * 8
-           + [ctypes.c_float, _I, _P]}
+           + [ctypes.c_float, _I, _P, _P]}
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 256
+BLOCK_Q = 64               # query rows per block: 4 warps of 16
+THREADS = 128
+WG_BLOCK_Q = 128           # flash_fwd_wgmma: 2 warpgroups of 64 rows
+WG_THREADS = 256
+STAGES = 2                 # depth of the k/v ring in shared memory
+Q_REG_MAX = 64             # dh and dv up to this: q fragments in registers
+SMEM_MAX = 232448          # shared memory one block may use on sm_90
+GRID_Y_MAX = 65535
+
+
+class Geometry(NamedTuple):
+    """How one call of K6 is launched (see ``launch_geometry``)."""
+    wgmma: bool            # float32, dh and dv <= 64: flash_fwd_wgmma
+    q_in_registers: bool   # q's split fragments in registers (else smem)
+    block_q: int
+    block_k: int           # keys per tile of the ring
+    stages: int
+    threads: int
+    dh_pad: int            # dh rounded up to the MMA depth of two k steps
+    dv_pad: int            # dv rounded up to 32 (output column groups)
+    dv_class: int          # the kernel's output width template: 64/128/256
+    k_stride: int          # elements per row of a q or k tile in smem
+    v_stride: int          # elements per row of a v tile in smem
+    smem_bytes: int        # dynamic shared memory
+    grid: tuple            # (B * H, query tiles), heaviest tile first
+
+    def c_args(self):
+        """The eleven ints the C entry launches with, once it has checked
+        that they fit the kernel they pick, the shapes and the card."""
+        return (int(self.wgmma), int(self.q_in_registers), self.block_k,
+                self.dh_pad, self.dv_pad, self.dv_class, self.k_stride,
+                self.v_stride, self.smem_bytes, *self.grid)
+
+
+def launch_geometry(B: int, Sq: int, H: int, dh: int, dv: int,
+                    dtype=torch.float32) -> Geometry:
+    """K6's launch for q ``(B, Sq, H, dh)`` and v's width ``dv``.
+
+    float32 with dh and dv up to ``Q_REG_MAX`` (the serve path) runs
+    ``flash_fwd_wgmma``: 128-row blocks of two warpgroups, dh and dv padded
+    to 64, the ring of raw k and v tiles plus the hi and lo planes of one
+    64-key tile. Everything else runs ``flash_fwd_mma``, 64-row blocks: dh
+    and dv up to ``Q_REG_MAX`` (bf16) keep q's fragments in registers and a
+    key tile of 64; above, q stays in shared memory and the key tile is 32
+    (the output accumulator takes up to 128 registers at dv 256). There dh
+    is padded to the depth of two MMA k steps (16 in float32, 32 in bf16),
+    dv to 32; row strides put a k row 64 bytes past a multiple of 128 and a
+    v row 16 past a multiple of 64, so the fragment reads are free of bank
+    conflicts; shared memory holds ``STAGES`` k and v tiles, plus the q
+    tile when it stays there (with q in registers it is staged in ring
+    stage 1)."""
+    es = 4 if dtype == torch.float32 else 2
+    q_reg = dh <= Q_REG_MAX and dv <= Q_REG_MAX
+    if q_reg and es == 4:
+        # flash_fwd_wgmma: 2 warpgroups of 64 rows, dh and dv padded to
+        # 64, raw k and v rows 68 floats apart, and the split hi and lo
+        # planes of a 64-key tile (k, and v transposed)
+        return Geometry(True, True, WG_BLOCK_Q, 64, STAGES, WG_THREADS,
+                        64, 64, 64, 68, 68,
+                        (STAGES * 64 * 2 * 68 + 4 * 64 * 64) * es,
+                        (B * H, math.ceil(Sq / WG_BLOCK_Q)))
+    block_k = 64 if q_reg else 32
+    kc = 16 if es == 4 else 32
+    dh_pad = math.ceil(dh / kc) * kc
+    dv_pad = math.ceil(dv / 32) * 32
+    dv_class = 64 if dv_pad <= 64 else 128 if dv_pad <= 128 else 256
+    k_stride = dh_pad + (64 - dh_pad * es) % 128 // es
+    v_stride = dv_pad + 16 // es
+    smem = (STAGES * block_k * (k_stride + v_stride)
+            + (0 if q_reg else BLOCK_Q * k_stride)) * es
+    return Geometry(False, q_reg, BLOCK_Q, block_k, STAGES, THREADS, dh_pad,
+                    dv_pad, dv_class, k_stride, v_stride, smem,
+                    (B * H, math.ceil(Sq / BLOCK_Q)))
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True,
@@ -65,13 +140,16 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if Sq > GRID_Y_MAX * BLOCK_Q:
+        raise ValueError(f"Sq={Sq}: at most {GRID_Y_MAX * BLOCK_Q} queries")
     out = torch.empty((B, Sq, H, dv), dtype=q.dtype, device=q.device)
+    args = launch_geometry(B, Sq, H, dh, dv, q.dtype).c_args()
     lib = _build.load("flash_attention", _PROTOS)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _build.check(lib, lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Sk,
         H, KV, dh, dv, int(q.dtype == torch.bfloat16), scale, int(causal),
-        stream), "flash_attention_fwd")
+        (ctypes.c_int * len(args))(*args), stream), "flash_attention_fwd")
     flash_attention_fwd.launches += 1
     return out
 

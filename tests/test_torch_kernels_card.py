@@ -305,6 +305,19 @@ K6_SWEEP = [
     ((1, 130, 70, 4, 2, 24, 40), True),
     ((1, 96, 96, 4, 4, 192, 128), True),
     ((1, 65, 65, 2, 1, 256, 256), True),
+    # off the 64-row query and 64/32-key tiles, Sq != Sk both ways, MQA,
+    # every head-width class (dh 8 / 24 / 72 / 192 / 256; q in registers up
+    # to 64), odd widths (4-byte copies)
+    ((1, 1000, 1000, 4, 2, 64, 64), True),
+    ((1, 100, 1000, 4, 1, 64, 64), False),
+    ((1, 1000, 100, 4, 2, 64, 64), True),
+    ((2, 77, 77, 4, 2, 8, 8), True),
+    ((1, 100, 100, 4, 2, 24, 24), False),
+    ((1, 100, 100, 4, 2, 72, 72), True),
+    ((1, 100, 1000, 3, 1, 72, 24), False),
+    ((1, 129, 129, 4, 2, 192, 128), False),
+    ((1, 100, 100, 2, 2, 256, 256), False),
+    ((1, 33, 47, 2, 1, 5, 3), True),
 ]
 
 
@@ -324,15 +337,70 @@ def test_k6_kernel_close_to_plain(cuda_device, dims, causal):
     assert (got - want).abs().max().item() <= 3e-5
 
 
-def test_k6_kernel_bf16_close_to_plain(cuda_device):
+# bfloat16: the JAX kernel test's case, the serve prefill's shape, tails
+# with MQA and dh != dv, the widest heads, odd dh (synchronous 2-byte copies)
+K6_BF16 = [
+    ((2, 64, 64, 4, 2, 16, 16), True),
+    ((8, 1024, 1024, 9, 3, 64, 64), True),
+    ((1, 100, 1000, 4, 1, 72, 40), False),
+    ((1, 1000, 100, 4, 2, 24, 24), True),
+    ((1, 65, 65, 2, 1, 256, 256), True),
+    ((1, 50, 50, 2, 1, 7, 9), True),
+]
+
+
+@pytest.mark.parametrize("dims,causal", K6_BF16)
+def test_k6_kernel_bf16_close_to_plain(cuda_device, dims, causal):
+    B, Sq, Sk, H, KV, dh, dv = dims
     rng = np.random.default_rng(1)
     t = lambda *s: torch.tensor(rng.normal(size=s), dtype=torch.bfloat16,  # noqa
                                 device=cuda_device)
-    q, k, v = t(2, 64, 4, 16), t(2, 64, 2, 16), t(2, 64, 2, 16)
+    q, k, v = t(B, Sq, H, dh), t(B, Sk, KV, dh), t(B, Sk, KV, dv)
+    got = fak.flash_attention_fwd(q, k, v, causal=causal)
+    want = flash_attention_ref(q, k, v, causal=causal)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k6_kernel_reads_unaligned_inputs(cuda_device, dtype):
+    """Contiguous views 4 (bf16: 2) bytes past a 16-byte boundary: the
+    kernel copies with 4-byte (bf16: 2-byte) chunks and stores o as is."""
+    rng = np.random.default_rng(3)
+
+    def view(*s):
+        flat = torch.tensor(rng.normal(size=int(np.prod(s)) + 1),
+                            dtype=dtype, device=cuda_device)
+        return flat[1:].view(s)
+    q, k, v = view(1, 100, 4, 64), view(1, 100, 2, 64), view(1, 100, 2, 64)
+    assert q.data_ptr() % 16 != 0
     got = fak.flash_attention_fwd(q, k, v, causal=True)
     want = flash_attention_ref(q, k, v, causal=True)
-    assert got.dtype == torch.bfloat16
-    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+    tol = 3e-5 if dtype == torch.float32 else 2e-2
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("dims,dtype,field,delta", [
+    ((1, 100, 4, 64, 64), torch.float32, "smem_bytes", 16),   # wgmma
+    ((1, 100, 4, 64, 64), torch.float32, "k_stride", 4),
+    ((1, 100, 4, 64, 64), torch.bfloat16, "block_k", -32),   # mma.sync
+    ((1, 100, 4, 72, 72), torch.float32, "dh_pad", -16),
+    ((1, 100, 4, 72, 72), torch.float32, "v_stride", 4),
+    ((1, 100, 4, 256, 256), torch.float32, "dv_class", -128),
+])
+def test_k6_refuses_a_geometry_that_does_not_fit(
+        cuda_device, monkeypatch, dims, dtype, field, delta):
+    """The C entry launches with ``launch_geometry``'s values as given and
+    refuses those that do not fit the kernel they pick."""
+    B, S, H, dh, dv = dims
+    q = torch.zeros(B, S, H, dh, dtype=dtype, device=cuda_device)
+    k = torch.zeros(B, S, 2, dh, dtype=dtype, device=cuda_device)
+    v = torch.zeros(B, S, 2, dv, dtype=dtype, device=cuda_device)
+    geometry = fak.launch_geometry
+    monkeypatch.setattr(fak, "launch_geometry", lambda *a: geometry(
+        *a)._replace(**{field: getattr(geometry(*a), field) + delta}))
+    with pytest.raises(RuntimeError, match="flash_attention_fwd"):
+        fak.flash_attention_fwd(q, k, v, causal=True)
 
 
 def test_k6_refuses_autograd(cuda_device):
@@ -350,15 +418,26 @@ def test_serve_on_card_close_to_cpu(cuda_device):
     cfg = smoke_variant(get_config("smollm-135m"))
     params = numpy_params(cfg, seed=0)
     toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 32))
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     outs = {}
     for dev in (cuda_device, torch.device("cpu")):
         model = model_from_params(cfg, params, device=dev)
         tok = torch.tensor(toks, dtype=torch.int32, device=dev)
         before = fak.flash_attention_fwd.launches
-        with torch.no_grad():
+        with torch.no_grad(), profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             logits = apply_model(model, {"tokens": tok}).logits
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
         launched = fak.flash_attention_fwd.launches - before
         assert launched == (cfg.n_layers if dev.type == "cuda" else 0)
+        if dev.type == "cuda":   # every launch on the wgmma kernel
+            k6 = [e.name for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and "flash_fwd" in e.name]
+            assert len(k6) == cfg.n_layers
+            assert all("flash_fwd_wgmma" in name for name in k6), k6
         outs[dev.type] = (logits.cpu(), greedy_generate(model, tok, 6).cpu())
     (a, ta), (b, tb) = outs["cuda"], outs["cpu"]
     assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
