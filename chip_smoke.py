@@ -21,7 +21,9 @@ Drives ``src/repro_torch`` only (no ``jax``, nothing of ``repro``):
    widths off its tiles (``FLASH_TAILS``) and at the serve path's prefill
    shape (8 x 1024 tokens, 9 heads over 3 kv heads, dh 64, causal, float32
    and bfloat16), with ``F.scaled_dot_product_attention`` timed as its
-   yardstick; K5 is timed once more with the L2 flushed before every call;
+   yardstick; K4 and K5 are timed once more with the L2 flushed before
+   every call, and K5 also at 3% and 95% of its rows labeled (``[k5]``
+   lines: each time against its bound);
 3. drives the grid path, ``maxflow_grid_batch`` on 4 seeded
    ``random_grid_problem`` instances of 512 x 512, with ``backend="pallas"``
    and ``backend="xla"``: both converge, match the scipy oracle, satisfy
@@ -35,7 +37,11 @@ Drives ``src/repro_torch`` only (no ``jax``, nothing of ``repro``):
    JAX package's rounds, the backends equal on every leaf;
 6. drives the matching path, ``match_bipartite_batch`` on 4 seeded
    4096 x 4096 graphs at p = 4/n on both backends: Hopcroft-Karp's
-   cardinalities, the JAX package's phases, the backends equal;
+   cardinalities, the JAX package's phases, the backends equal; K5 runs
+   once per frontier sweep, 150 launches and 150 ``frontier_`` kernels in
+   the profiled ``pallas`` solve, and one more ``pallas`` solve with a
+   hook on ``core.matching.bfs._expand`` counts the labeled rows K5 reads
+   (1,436,825; a ``[k5]`` line holds them against K5's time in the solve);
 7. drives the LLM serving path, smollm-135m at full width (30 layers) on
    weights from ``repro_torch.interop.numpy_params`` (seed 0): 8 prompts
    of 1024 tokens and 16 new tokens through ``make_prefill_step`` and
@@ -137,7 +143,15 @@ FP32_OPS_PER_S = 67e12         # H100 SXM non-tensor 32-bit rate (data sheet)
 # as three TF32 products, a bfloat16 one as one bf16 product
 TF32_OPS_PER_S = 495e12
 BF16_OPS_PER_S = 989e12
-L2_FLUSH_BYTES = 128 << 20     # written between calls to time K5 L2-cold
+L2_FLUSH_BYTES = 128 << 20     # written between calls to time K4, K5 L2-cold
+# K5's shares of labeled rows, timed on their own (half first: the row's
+# main input); a matching solve's sweeps run from 2% to 96%
+K5_SHARES = (0.5, 0.03, 0.95)
+# K5 launches and labeled-row reads (rows with root < INF, summed over the
+# batch and the calls) in one matching pallas solve of the smoke's graphs;
+# they do not depend on the machine (a CPU count with the hook of
+# ``k5_reads``), so any other count means the solve changed
+K5_READS_WANT = (150, 1_436_825)
 KERNEL_SOURCES = {
     "grid_push_decide": ("src/repro_torch/kernels/csrc/grid_push.cu",
                          "src/repro/kernels/grid_push/kernel.py:116"),
@@ -521,27 +535,50 @@ def kernels_k3(dev, cap, cs, ct, n_nodes) -> dict:
                 board_ms=board_ms, **row)
 
 
-def kernels_assignment_matching(dev) -> dict:
-    """K4 and K5 against their plain versions at the assignment and
-    matching phases' shapes, bitwise, with timings and the one-call
-    PyTorch yardstick of each (``library_ms``, timed only)."""
-    from repro_torch.kernels.bidding.kernel import bidding
-    from repro_torch.kernels.bidding.ref import INF, bidding_ref
-    from repro_torch.kernels.frontier.kernel import frontier
-    from repro_torch.kernels.frontier.ref import frontier_ref
+def k4_k5_inputs(dev):
+    """K4's and K5's inputs at the assignment and matching phases' shapes,
+    from one generator, K4's draws first: ``(c, p_y, mask)`` and
+    ``{share: (adj, root_row, match_row)}`` over ``K5_SHARES``.
+
+    K4: the assignment phase's scaled costs, random prices, a fifth of the
+    arcs masked (fixed or matched) and every 64th row fully masked. K5:
+    the matching phase's graphs with ``share`` of the rows labeled (a
+    solve's sweeps run from 2% to 96%), roots drawn from the rows, random
+    matched columns; half labeled, the row's main input, is drawn first
+    (the input of every earlier reading)."""
+    from repro_torch.kernels.frontier.ref import INF
     rng = np.random.default_rng(SEED + 1)
     t = lambda a, dt: torch.tensor(a, dtype=dt, device=dev)  # noqa: E731
-    out = {}
-
-    # K4 on the assignment phase's scaled costs, random prices, a fifth of
-    # the arcs masked (fixed or matched) and every 64th row fully masked
     B, n = ASSIGN_B, ASSIGN_N
     c = t(-(n + 1) * assignment_weights(), torch.int32)
     p_y = t(rng.integers(-(n + 1) * 100, 1, (B, n)), torch.int32)
     m = rng.random((B, n, n)) < 0.2
     m[:, ::64] = True
-    mask = t(m, torch.bool)
-    args = (c, p_y, mask)
+    B, n = MATCH_B, MATCH_N
+    adj = t(matching_adjacency(), torch.bool)
+    k5 = {}
+    for share in K5_SHARES:
+        labeled = rng.random((B, n)) < share
+        root = t(np.where(labeled, rng.integers(0, n, (B, n)), INF),
+                 torch.int32)
+        k5[share] = (adj, root, t(rng.integers(-1, n, (B, n)), torch.int32))
+    return (c, p_y, t(m, torch.bool)), k5
+
+
+def kernels_assignment_matching(dev) -> dict:
+    """K4 and K5 against their plain versions at the assignment and
+    matching phases' shapes (``k4_k5_inputs``), bitwise, with timings,
+    L2-warm and L2-cold (K5 at each share of labeled rows), and the
+    one-call PyTorch yardstick of each (``library_ms``, timed only)."""
+    from repro_torch.kernels.bidding.kernel import bidding
+    from repro_torch.kernels.bidding.ref import INF, bidding_ref
+    from repro_torch.kernels.frontier.kernel import (
+        frontier, launch_geometry, max_active_clusters)
+    from repro_torch.kernels.frontier.ref import frontier_ref
+    out = {}
+    args, inputs = k4_k5_inputs(dev)
+    c, p_y, mask = args
+    B, n = ASSIGN_B, ASSIGN_N
     err = compare(bidding(*args), bidding_ref(*args), "K4")
     masked = torch.where(mask, INF, c - p_y[:, None, :])
     # c and mask read once (5 B per entry), p_y read and 3 outputs written
@@ -553,41 +590,68 @@ def kernels_assignment_matching(dev) -> dict:
                   "bidding_kernel"))
     row["library_ms"] = took(row, "library_ms", time_ms(
         lambda: torch.topk(masked, 2, dim=-1, largest=False)))
+    row["cold_ms"] = took(row, "cold_ms", time_cold_ms(
+        lambda: bidding(*args), "bidding_kernel"))
+    log(f"[kernels] K4 L2-warm {row['ms']:.4f} ms, L2-cold "
+        f"{row['cold_ms']:.4f} ms; bound {b_ms:.4f} ms")
 
-    # K5 on the matching phase's graphs, half the rows labeled with roots
-    # drawn from the rows, random matched columns
     B, n = MATCH_B, MATCH_N
-    adj = t(matching_adjacency(), torch.bool)
-    labeled = rng.random((B, n)) < 0.5
-    root = t(np.where(labeled, rng.integers(0, n, (B, n)), INF), torch.int32)
-    match = t(rng.integers(-1, n, (B, n)), torch.int32)
-    args5 = (adj, root, match)
-    err = compare(frontier(*args5), frontier_ref(*args5), "K5")
+    err = max(compare(frontier(*a), frontier_ref(*a), f"K5 {share:.0%}")
+              for share, a in inputs.items())
+    args5 = inputs[0.5]
+    adj, root, match = args5
     rows = torch.arange(n, device=dev, dtype=torch.int64)
     cand = (adj & (root < INF)[..., None]
             & (match[..., None] != torch.arange(n, device=dev)))
     key = torch.where(cand, (root.to(torch.int64)[..., None] << 32)
                       | rows[:, None], torch.iinfo(torch.int64).max)
-    # only a labeled row's adjacency is needed (1 B per entry); both row
-    # labels read (8 B per row), both outputs written (8 B per column);
-    # about 4 ops per entry read
-    need = int(labeled.sum()) * n
-    b_ms, b_by = bound(need + 8 * B * n + 8 * B * n, 4 * need)
+    labeled = int((root < INF).sum())
+    b_ms, b_by = k5_bound(labeled, launches=1)
     row = out["frontier"] = dict(
         max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
-        labeled_rows=int(labeled.sum()), rows=B * n,
+        labeled_rows=labeled, rows=B * n,
         **timings(lambda: frontier(*args5), lambda: frontier_ref(*args5),
                   "frontier_"))
     row["library_ms"] = took(row, "library_ms",
                              time_ms(lambda: torch.min(key, dim=-2)))
-    # the labeled rows' adjacency (half of 67 MB) fits in the 50 MB L2
-    # across the repeated calls of the time above; time it from cold too
-    cold = row["cold_ms"] = took(row, "cold_ms", time_cold_ms(
+    # the labeled rows' adjacency fits in the 50 MB L2 across the repeated
+    # calls of the time above; time it from cold too
+    row["cold_ms"] = took(row, "cold_ms", time_cold_ms(
         lambda: frontier(*args5), "frontier_"))
-    log(f"[kernels] K5 L2-warm {row['ms']:.4f} ms, L2-cold "
-        f"{cold:.4f} ms ({L2_FLUSH_BYTES >> 20} MB written before each "
-        f"call); bound {b_ms:.4f} ms")
+    g = launch_geometry(B, n, n, True)
+    log(f"[kernels] K5 launch as launch_geometry picks it: {g}; the card "
+        f"holds {max_active_clusters(g)} such clusters at once, the grid "
+        f"has {g.grid[0] * g.grid[1] // g.cluster}")
+    row["regimes"] = {}
+    for share, a in inputs.items():
+        labeled = int((a[1] < INF).sum())
+        name = f"{share:.2f}"
+        if share == 0.5:
+            warm, cold = row["ms"], row["cold_ms"]
+        else:
+            warm = took(row, f"regimes.{name}.ms",
+                        time_ms(lambda: frontier(*a), symbol="frontier_"))
+            cold = took(row, f"regimes.{name}.cold_ms", time_cold_ms(
+                lambda: frontier(*a), "frontier_"))
+        row["regimes"][name] = dict(labeled_rows=labeled, ms=warm,
+                                    cold_ms=cold)
+        bound_share = k5_bound(labeled, launches=1)[0]
+        log(f"[k5] {labeled} of {B * n} rows labeled ({share:.0%}): "
+            f"L2-warm {warm:.4f} ms, L2-cold {cold:.4f} ms "
+            f"({L2_FLUSH_BYTES >> 20} MB written before each call); bound "
+            f"{bound_share:.4f} ms by bytes ({bound_share / warm:.0%} / "
+            f"{bound_share / cold:.0%} of it)")
     return out
+
+
+def k5_bound(reads: int, launches: int) -> tuple[float, str]:
+    """K5's least time over ``launches`` calls at the matching phase's
+    shape that read ``reads`` labeled rows in all: each labeled row's
+    adjacency once (1 B per entry; no other row is needed), both row
+    labels (8 B per row) and both outputs (8 B per column) once per call;
+    about 4 ops per entry read."""
+    need = reads * MATCH_N
+    return bound(need + 16 * launches * MATCH_B * MATCH_N, 4 * need)
 
 
 def flash_inputs(rng, dims, dtype, dev):
@@ -913,7 +977,8 @@ def solve_in_turns(what: str, dev, counts: dict, check, fn, *a,
     ``check(solve_id, res)`` runs on every result; the second result of a
     backend must equal its first on every leaf, and ``pallas`` must equal
     ``xla``. Then each backend is profiled once (``profile``) against the
-    mean of its two unprofiled walls. Returns ``{backend: [wall, wall]}``.
+    mean of its two unprofiled walls. Returns ``{backend: [wall, wall]}``
+    and ``{backend: profile}``.
     """
     from repro_torch.interop import to_numpy
     for backend in ("pallas", "xla"):   # warm-up: loads the kernels used
@@ -935,10 +1000,11 @@ def solve_in_turns(what: str, dev, counts: dict, check, fn, *a,
         results.setdefault(backend, to_numpy(res))
         walls[backend].append(wall)
     require_same(results["pallas"], results["xla"], what)
-    for backend in ("pallas", "xla"):
-        profile(f"{what} {backend}", sum(walls[backend]) / 2, fn, *a,
-                backend=backend, device=dev, **kw)
-    return walls
+    profiles = {backend: profile(f"{what} {backend}",
+                                 sum(walls[backend]) / 2, fn, *a,
+                                 backend=backend, device=dev, **kw)
+                for backend in ("pallas", "xla")}
+    return walls, profiles
 
 
 def phase_assignment(dev, counts: dict) -> dict:
@@ -964,8 +1030,8 @@ def phase_assignment(dev, counts: dict) -> dict:
                                      f"{ASSIGN_ROUNDS_WANT[method]}")
 
         what = f"assignment_{method}"
-        walls[what] = solve_in_turns(what, dev, counts, check,
-                                     solve_assignment, w, method=method)
+        walls[what], _ = solve_in_turns(what, dev, counts, check,
+                                        solve_assignment, w, method=method)
         require_launched(counts[f"{what}_pallas"], ["bidding"], what)
         require_not_launched(counts[f"{what}_xla"], ["bidding"], what)
     return walls
@@ -974,7 +1040,10 @@ def phase_assignment(dev, counts: dict) -> dict:
 def phase_matching(dev, counts: dict) -> dict:
     """``match_bipartite_batch`` on MATCH_B graphs of n^2 on both backends:
     Hopcroft-Karp's cardinalities, the JAX package's phases, the backends
-    equal on every leaf, K5 on ``pallas`` only."""
+    equal on every leaf, K5 on ``pallas`` only, once per frontier sweep
+    (``K5_READS_WANT``: launches in the solve, device kernels in its
+    profile, and the labeled rows they read, from ``k5_reads``). Returns
+    the walls and K5's device time in the profiled ``pallas`` solve."""
     from repro_torch.core.matching import hopcroft_karp, match_bipartite_batch
     adj = matching_adjacency()
     oracle = [hopcroft_karp(a)[2] for a in adj]
@@ -991,11 +1060,59 @@ def phase_matching(dev, counts: dict) -> dict:
             raise AssertionError(f"{solve_id}: phases != JAX package's "
                                  f"{MATCH_ROUNDS_WANT}")
 
-    walls = solve_in_turns("matching", dev, counts, check,
-                           match_bipartite_batch, adj)
+    walls, profiles = solve_in_turns("matching", dev, counts, check,
+                                     match_bipartite_batch, adj)
     require_launched(counts["matching_pallas"], ["frontier"], "matching")
     require_not_launched(counts["matching_xla"], ["frontier"], "matching")
-    return {"matching": walls}
+    k5 = {name: v for name, v in profiles["pallas"]["port_kernels"].items()
+          if name.startswith("frontier_")}
+    ms, kernels = (sum(v[i] for v in k5.values()) for i in range(2))
+    launches, reads = k5_reads(dev, adj, check)
+    if (launches, reads) != K5_READS_WANT or kernels != launches:
+        raise AssertionError(
+            f"matching pallas: K5 ran {launches} launches reading {reads} "
+            f"labeled rows ({kernels} frontier_ kernels in the profiled "
+            f"solve), not {K5_READS_WANT}")
+    b_ms = k5_bound(reads, launches)[0]
+    log(f"[k5] matching pallas: {launches} launches, {reads} labeled-row "
+        f"reads ({reads / launches / (MATCH_B * MATCH_N):.1%} of the rows "
+        f"per launch); bound {b_ms:.4f} ms per solve, "
+        f"{b_ms / launches:.4f} per launch; K5 device {ms:.4f} ms per "
+        f"profiled solve, {ms / launches:.4f} per launch (the bound is "
+        f"{b_ms / ms:.0%} of it)")
+    return {"matching": walls,
+            "k5_in_solve": dict(ms=ms, launches=kernels,
+                                ms_per_launch=ms / kernels,
+                                labeled_row_reads=reads)}
+
+
+def k5_reads(dev, adj, check) -> tuple[int, int]:
+    """One more unprofiled ``pallas`` solve, its result checked like the
+    others, with a hook on ``core.matching.bfs._expand`` (restored after)
+    that counts K5's calls and the labeled rows each reads (root < INF,
+    over the whole batch). Returns ``(calls, labeled rows)``; the launch
+    count must equal the calls."""
+    from repro_torch.core.matching import bfs, match_bipartite_batch
+    from repro_torch.kernels.frontier.ref import INF
+    expand, seen = bfs._expand, []
+
+    def counted(adj_, root_row, match_row, backend):
+        if backend == "pallas":
+            seen.append(int((root_row < INF).sum()))
+        return expand(adj_, root_row, match_row, backend)
+    bfs._expand = counted
+    try:
+        reset_counts()
+        res, _ = solve(match_bipartite_batch, adj, backend="pallas",
+                       device=dev)
+        launched = read_counts()["frontier"]
+    finally:
+        bfs._expand = expand
+    check("matching_pallas_counted", res)
+    if launched != len(seen):
+        raise AssertionError(f"K5 launched {launched} times in "
+                             f"{len(seen)} frontier sweeps")
+    return len(seen), sum(seen)
 
 
 def serve_prompts(vocab: int, B: int = SERVE_B, S: int = SERVE_S,
@@ -1188,7 +1305,8 @@ def main() -> int:
     prob, in_solve = phase_main(dev, problems, oracle, counts)
     in_solve.update(phase_balanced(dev, prob, oracle, counts))
     phase_assignment(dev, counts)
-    phase_matching(dev, counts)
+    kernels["frontier"]["in_solve"] = phase_matching(dev, counts)[
+        "k5_in_solve"]
     serve = phase_serve(dev, counts)
     k6 = serve["prefill"]["port_kernels"]
     kernels["flash_attention_fwd"]["prefill_ms_per_launch"] = (

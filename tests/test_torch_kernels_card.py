@@ -247,24 +247,121 @@ def test_k4_kernel_equals_plain(cuda_device, shape, ties):
     assert bool((got[0][..., ::7] == INF).all())
 
 
-@pytest.mark.parametrize("shape", [(2, 600, 1024), (3, 257, 48),
-                                   (1, 300, 37)])
-def test_k5_kernel_equals_plain(cuda_device, shape):
-    """16-column and scalar paths, several row chunks, ties of roots."""
-    rng = np.random.default_rng(4)
+# (shape, share of rows labeled, roots): the 16-column and scalar (n_c =
+# 37) paths, one row, one row past a cluster's span (launch_geometry
+# takes clusters of 16 at that shape), many chunks per
+# block, the smoke's shape nearly empty and full, no labeled row, and one
+# root for every labeled row (ties decided by the row across the blocks
+# of a cluster)
+K5_CASES = [((2, 600, 1024), 0.5, "few"), ((3, 257, 48), 0.5, "few"),
+            ((1, 300, 37), 0.5, "few"), ((1, 1, 16), 1.0, "few"),
+            ((2, frk.CLUSTER_MAX * frk.CHUNK + 1, 512), 0.5, "few"),
+            ((1, 5000, 512), 0.5, "many"), ((4, 4096, 4096), 0.02, "many"),
+            ((4, 4096, 4096), 1.0, "many"), ((2, 600, 1024), 0.0, "few"),
+            ((2, 3000, 512), 1.0, "same"), ((2, 3000, 37), 0.7, "same")]
+
+
+def _k5_inputs(dev, shape, share=0.5, roots="few", seed=4, adj=None):
+    """K5 inputs: adjacency at 5% density (into ``adj`` when given),
+    ``share`` of the rows labeled with roots from [0, 5) (``few``), from
+    the rows (``many``) or all 7 (``same``), random matched columns."""
+    rng = np.random.default_rng(seed)
     *batch, n_r, n_c = shape
-    adj = rng.random(shape) < 0.05
-    root = np.where(rng.random(tuple(batch) + (n_r,)) < 0.5,
-                    rng.integers(0, 5, tuple(batch) + (n_r,)), INF)
-    match = rng.integers(-1, n_c, tuple(batch) + (n_r,))
-    t = lambda a, dt: torch.tensor(a, dtype=dt, device=cuda_device)  # noqa
-    args = (t(adj, torch.bool), t(root, torch.int32), t(match, torch.int32))
+    rows = tuple(batch) + (n_r,)
+    r = {"few": rng.integers(0, 5, rows), "many": rng.integers(0, n_r, rows),
+         "same": np.full(rows, 7)}[roots]
+    root = np.where(rng.random(rows) < share, r, INF)
+    match = rng.integers(-1, n_c, rows)
+    t = lambda a, dt: torch.tensor(a, dtype=dt, device=dev)  # noqa
+    a = t(rng.random(shape) < 0.05, torch.bool)
+    if adj is not None:
+        adj.copy_(a)
+        a = adj
+    return a, t(root, torch.int32), t(match, torch.int32)
+
+
+def _k5_check(args, geometry=None):
     before = frk.frontier.launches
-    got = frk.frontier(*args)
+    got = frk._frontier(*args, geometry)
     torch.cuda.synchronize()
     assert frk.frontier.launches == before + 1
     want = frontier_ref(*args)
     assert all(bits_equal(g, w) for g, w in zip(got, want))
+    return got
+
+
+@pytest.mark.parametrize("shape,share,roots", K5_CASES)
+def test_k5_kernel_equals_plain(cuda_device, shape, share, roots):
+    got = _k5_check(_k5_inputs(cuda_device, shape, share, roots))
+    if share == 0.0:
+        assert bool((got[0] == INF).all()) and bool((got[1] == 0).all())
+
+
+@pytest.mark.parametrize("cluster", [1, 2, frk.CLUSTER, frk.CLUSTER_MAX])
+@pytest.mark.parametrize("shape", [(2, 600, 1024), (1, 300, 37),
+                                   (4, 4096, 4096)])
+def test_k5_every_cluster_size(cuda_device, shape, cluster):
+    """Every cluster size, whichever ``launch_geometry`` would take, 16
+    included (the non-portable maximum): the same bits."""
+    args = _k5_inputs(cuda_device, shape, 0.5, "same")
+    *batch, n_r, n_c = shape
+    g = frk.launch_geometry(int(np.prod(batch)), n_r, n_c, n_c % 16 == 0,
+                            cluster)
+    _k5_check(args, g)
+
+
+def test_k5_smoke_shape_runs_in_one_wave(cuda_device):
+    """The card holds every cluster of the smoke's 4 x 4096^2 launch at
+    once (a second wave would add a whole pass of the fixed cost)."""
+    g = frk.launch_geometry(4, 4096, 4096, True)
+    assert frk.max_active_clusters(g) >= g.grid[0] * g.grid[1] // g.cluster
+
+
+@pytest.mark.parametrize("shape", [(1, 4096, 4096), (2, 4096, 4096),
+                                   (1, 20000, 512), (1, 300, 37)])
+def test_k5_clusters_of_16_run_in_one_wave(cuda_device, shape):
+    """Where ``launch_geometry`` takes clusters of 16 (grids that clusters
+    of 8 would leave SMs idle in), the card holds all of them at once, and
+    the kernel computes the same bits."""
+    B, n_r, n_c = shape
+    g = frk.launch_geometry(B, n_r, n_c, n_c % 16 == 0)
+    assert g.cluster == frk.CLUSTER_MAX
+    assert frk.max_active_clusters(g) >= g.grid[0] * g.grid[1] // g.cluster
+    _k5_check(_k5_inputs(cuda_device, shape))
+
+
+def test_k5_unaligned_adjacency_takes_the_scalar_path(cuda_device):
+    """A contiguous adjacency 1 byte past a 16-byte boundary, at a width
+    the vector path would take: the scalar path, the same bits."""
+    shape = (2, 600, 512)
+    store = torch.empty(int(np.prod(shape)) + 1, dtype=torch.bool,
+                        device=cuda_device)
+    adj = store[1:].view(shape)
+    assert adj.is_contiguous() and adj.data_ptr() % 16 != 0
+    _k5_check(_k5_inputs(cuda_device, shape, adj=adj))
+
+
+@pytest.mark.parametrize("field,delta", [
+    ("threads", -32), ("smem_bytes", 8), ("rows_per_block", -1),
+    ("cluster", frk.CLUSTER_MAX + 1 - frk.CLUSTER), ("grid", 1),
+    ("vec", -15)])
+def test_k5_refuses_a_geometry_that_does_not_fit(cuda_device, monkeypatch,
+                                                 field, delta):
+    """The C entry launches with ``launch_geometry``'s values as given and
+    refuses those that do not fit the build, the shapes or the card."""
+    args = _k5_inputs(cuda_device, (1, 600, 1024))
+    geometry = frk.launch_geometry
+
+    def bent(*a):
+        g = geometry(*a)
+        if field == "grid":
+            return g._replace(grid=(g.grid[0] + delta, g.grid[1]))
+        return g._replace(**{field: getattr(g, field) + delta})
+    monkeypatch.setattr(frk, "launch_geometry", bent)
+    before = frk.frontier.launches
+    with pytest.raises(RuntimeError, match="frontier"):
+        frk.frontier(*args)
+    assert frk.frontier.launches == before
 
 
 @pytest.mark.parametrize("method", ["auction", "pushrelabel"])
