@@ -34,7 +34,10 @@ Drives ``src/repro_torch`` only (no ``jax``, nothing of ``repro``):
 5. drives the assignment path, ``solve_assignment`` on 8 x 512^2 seeded
    weights in [0, 100], for ``method="auction"`` and ``"pushrelabel"``
    on ``backend="pallas"`` and ``"xla"``: scipy's optimal weights, the
-   JAX package's rounds, the backends equal on every leaf;
+   JAX package's rounds, the backends equal on every leaf; every K4
+   launch on its vector path, and K4's time per launch in each profiled
+   ``pallas`` solve against its bound (``[k4]`` lines, ``in_solve`` of
+   the ``bidding`` row);
 6. drives the matching path, ``match_bipartite_batch`` on 4 seeded
    4096 x 4096 graphs at p = 4/n on both backends: Hopcroft-Karp's
    cardinalities, the JAX package's phases, the backends equal; K5 runs
@@ -579,11 +582,10 @@ def kernels_assignment_matching(dev) -> dict:
     args, inputs = k4_k5_inputs(dev)
     c, p_y, mask = args
     B, n = ASSIGN_B, ASSIGN_N
+    k4_geometry(args)
     err = compare(bidding(*args), bidding_ref(*args), "K4")
     masked = torch.where(mask, INF, c - p_y[:, None, :])
-    # c and mask read once (5 B per entry), p_y read and 3 outputs written
-    # (16 B per row); about 4 integer ops per entry
-    b_ms, b_by = bound(5 * B * n * n + 16 * B * n, 4 * B * n * n)
+    b_ms, b_by = k4_bound()
     row = out["bidding"] = dict(
         max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
         **timings(lambda: bidding(*args), lambda: bidding_ref(*args),
@@ -642,6 +644,30 @@ def kernels_assignment_matching(dev) -> dict:
             f"{bound_share:.4f} ms by bytes ({bound_share / warm:.0%} / "
             f"{bound_share / cold:.0%} of it)")
     return out
+
+
+def k4_bound() -> tuple[float, str]:
+    """K4's least time for one call at the assignment phase's shape: c and
+    mask read once (5 B per entry), p_y read and 3 outputs written (16 B
+    per row); about 4 integer ops per entry."""
+    B, n = ASSIGN_B, ASSIGN_N
+    return bound(5 * B * n * n + 16 * B * n, 4 * B * n * n)
+
+
+def k4_geometry(args):
+    """Log K4's launch at the assignment phase's shape as
+    ``launch_geometry`` picks it for these tensors; it must be the vector
+    path."""
+    from repro_torch.kernels.bidding.kernel import (aligned_for_vectors,
+                                                    launch_geometry)
+    *batch, n_r, n_c = args[0].shape
+    g = launch_geometry(int(np.prod(batch)), n_r, n_c,
+                        aligned_for_vectors(*args))
+    log(f"[kernels] K4 launch as launch_geometry picks it: {g}")
+    if not g.vec:
+        raise AssertionError(f"K4 at {tuple(args[0].shape)}: the scalar "
+                             f"path, not the vector path: {g}")
+    return g
 
 
 def k5_bound(reads: int, launches: int) -> tuple[float, str]:
@@ -1010,13 +1036,24 @@ def solve_in_turns(what: str, dev, counts: dict, check, fn, *a,
 def phase_assignment(dev, counts: dict) -> dict:
     """``solve_assignment`` on ASSIGN_B x n^2 weights for both methods on
     both backends: scipy's optimal weights, the JAX package's rounds,
-    ``pallas`` equal to ``xla`` on every leaf, K4 on ``pallas`` only."""
+    ``pallas`` equal to ``xla`` on every leaf, K4 on ``pallas`` only and
+    on its vector path in every launch (a hook on the wrapper's
+    ``launch_geometry``, restored after). Returns K4's device time in each
+    method's profiled ``pallas`` solve: ms, launches, ms per launch and
+    the bound per launch (``k4_bound``)."""
     from repro_torch.core.assignment.cost_scaling import solve_assignment
     from repro_torch.core.assignment.ref import optimal_weight
+    from repro_torch.kernels.bidding import kernel as bidk
     w = assignment_weights()
     optimum = [optimal_weight(x) for x in w]
     log(f"[assignment] scipy optimal weights {optimum}")
-    walls = {}
+    in_solve = {}
+    geometry, paths = bidk.launch_geometry, set()
+
+    def recorded(*a):
+        g = geometry(*a)
+        paths.add("vector" if g.vec else "scalar")
+        return g
     for method in ("auction", "pushrelabel"):
         def check(solve_id, res):
             log(f"[{solve_id}] weights {res.weight.tolist()}, rounds "
@@ -1030,11 +1067,28 @@ def phase_assignment(dev, counts: dict) -> dict:
                                      f"{ASSIGN_ROUNDS_WANT[method]}")
 
         what = f"assignment_{method}"
-        walls[what], _ = solve_in_turns(what, dev, counts, check,
-                                        solve_assignment, w, method=method)
+        bidk.launch_geometry = recorded
+        try:
+            _, profiles = solve_in_turns(what, dev, counts, check,
+                                         solve_assignment, w, method=method)
+        finally:
+            bidk.launch_geometry = geometry
         require_launched(counts[f"{what}_pallas"], ["bidding"], what)
         require_not_launched(counts[f"{what}_xla"], ["bidding"], what)
-    return walls
+        if paths != {"vector"}:
+            raise AssertionError(f"{what}: K4 took the paths {paths}, not "
+                                 f"the vector path alone")
+        ms, n = profiles["pallas"]["port_kernels"]["bidding_kernel"]
+        b_ms = k4_bound()[0]
+        in_solve[method] = dict(ms=ms, launches=n, ms_per_launch=ms / n,
+                                bound_ms_per_launch=b_ms)
+        log(f"[k4] {what} pallas: {n} bidding_kernel kernels in the "
+            f"profiled solve ({counts[f'{what}_pallas']['bidding']} launches "
+            f"counted in the first), K4 device {ms:.4f} ms per "
+            f"profiled solve, {ms / n:.4f} per launch against a bound of "
+            f"{b_ms:.4f} ms per launch ({b_ms / (ms / n):.0%} of it); "
+            f"bound {b_ms * n:.4f} ms per solve")
+    return in_solve
 
 
 def phase_matching(dev, counts: dict) -> dict:
@@ -1304,7 +1358,7 @@ def main() -> int:
     counts = {}
     prob, in_solve = phase_main(dev, problems, oracle, counts)
     in_solve.update(phase_balanced(dev, prob, oracle, counts))
-    phase_assignment(dev, counts)
+    kernels["bidding"]["in_solve"] = phase_assignment(dev, counts)
     kernels["frontier"]["in_solve"] = phase_matching(dev, counts)[
         "k5_in_solve"]
     serve = phase_serve(dev, counts)

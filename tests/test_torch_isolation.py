@@ -1,6 +1,7 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither ``jax`` nor anything of the JAX package ``repro``, and the smoke
-script refuses to run without a card or without the repository.
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and the
+card-only variant scripts import neither ``jax`` nor anything of the JAX
+package ``repro``, and the smoke script refuses to run without a card or
+without the repository.
 """
 import pathlib
 import re
@@ -44,9 +45,16 @@ def test_import_pulls_in_neither_jax_nor_repro():
     assert proc.stdout.strip() == "[]"
 
 
+# the card-only variant scripts run where jax is not installed
+_CARD_SCRIPTS = ["tests/torch_smoke_k4_variants.py",
+                 "tests/torch_smoke_k5_variants.py",
+                 "tests/torch_smoke_k6_ablation.py"]
+
+
 @pytest.mark.parametrize("path", sorted(
     [p.relative_to(ROOT) for p in PORT.rglob("*.py")]
-    + [pathlib.Path("chip_smoke.py")]), ids=str)
+    + [pathlib.Path(p) for p in ["chip_smoke.py", *_CARD_SCRIPTS]]),
+    ids=str)
 def test_source_has_no_jax_or_repro_import(path):
     found = _FORBIDDEN.findall((ROOT / path).read_text())
     assert not found, f"{path} imports {found}"

@@ -223,28 +223,113 @@ def test_slice_on_card_equals_cpu(cuda_device, backend):
     assert bool(got.converged.all())
 
 
-@pytest.mark.parametrize("shape,ties", [((3, 96, 512), False),
-                                        ((2, 40, 37), True),
-                                        ((64, 1), True)])
-def test_k4_kernel_equals_plain(cuda_device, shape, ties):
-    """Vector (width % 4 == 0) and scalar paths, ties, masked rows."""
-    rng = np.random.default_rng(3)
+# (shape, ties): the smoke's 8 x 512^2, one instance, wide rows (4096
+# and 2048 columns), n_c % 16 != 0 and n_c % 4 != 0 (the scalar path),
+# blocks across instances (2 x 40 x 1000, 64 rows of one column, 5 x 101
+# x 512), a last block with 1 row of its 8 (5 x 101 = 505 rows) and the
+# first design's shapes
+K4_SHAPES = [((8, 512, 512), False), ((1, 512, 512), True),
+             ((2, 300, 4096), False), ((2, 2048, 2048), True),
+             ((3, 96, 516), True), ((2, 40, 1000), True), ((64, 1), True),
+             ((5, 101, 512), True), ((3, 96, 512), False),
+             ((2, 40, 37), True)]
+
+
+def _k4_inputs(dev, shape, ties, seed=3, store=None):
+    """K4 inputs: costs in 0..3 (ties) or the solver's scaled weights,
+    prices in -3..2, 30% of the arcs and every 7th row masked; the mask
+    into ``store`` when given."""
+    rng = np.random.default_rng(seed)
     *batch, n_r, n_c = shape
     c = (rng.integers(0, 4, shape) if ties
          else -(n_c + 1) * rng.integers(0, 101, shape))
     p = rng.integers(-3, 3, tuple(batch) + (n_c,))
     mask = rng.random(shape) < 0.3
     mask[..., ::7, :] = True
-    t = lambda a, dt: torch.tensor(a, dtype=dt, device=cuda_device)  # noqa
-    args = (t(c, torch.int32), t(p, torch.int32), t(mask, torch.bool))
+    t = lambda a, dt: torch.tensor(a, dtype=dt, device=dev)  # noqa
+    m = t(mask, torch.bool)
+    if store is not None:
+        store.copy_(m)
+        m = store
+    return t(c, torch.int32), t(p, torch.int32), m
+
+
+def _k4_check(args, geometry=None):
+    """One launch, the plain version's bits, masked rows (INF, 0, INF)."""
     before = bidk.bidding.launches
-    got = bidk.bidding(*args)
+    got = bidk._bidding(*args, geometry)
     torch.cuda.synchronize()
     assert bidk.bidding.launches == before + 1
     want = bidding_ref(*args)
     assert all(bits_equal(g, w) for g, w in zip(got, want))
     assert bool((got[1][..., ::7] == 0).all())
     assert bool((got[0][..., ::7] == INF).all())
+    return got
+
+
+@pytest.mark.parametrize("shape,ties", K4_SHAPES)
+def test_k4_kernel_equals_plain(cuda_device, shape, ties):
+    """Every shape of the vector and scalar paths, ties, masked rows."""
+    _k4_check(_k4_inputs(cuda_device, shape, ties))
+
+
+def _k4_geometry(args, aligned=True):
+    *batch, n_r, n_c = args[0].shape
+    return bidk.launch_geometry(int(np.prod(batch)), n_r, n_c, aligned)
+
+
+@pytest.mark.parametrize("shape", [(3, 96, 512), (8, 512, 512)])
+def test_k4_each_path_gives_the_same_bits(cuda_device, shape):
+    """The vector path, as ``launch_geometry`` takes it, and the scalar
+    path forced at the same shape: the same bits."""
+    args = _k4_inputs(cuda_device, shape, True)
+    vector, scalar = _k4_geometry(args), _k4_geometry(args, aligned=False)
+    assert vector.vec and not scalar.vec
+    got = [_k4_check(args, g) for g in (vector, scalar)]
+    assert all(bits_equal(a, b) for a, b in zip(*got))
+
+
+def test_k4_unaligned_mask_takes_the_scalar_path(cuda_device):
+    """A contiguous mask 1 byte past a 4-byte boundary, at a width the
+    vector path would take: the scalar path, the same bits."""
+    shape = (2, 96, 512)
+    store = torch.empty(int(np.prod(shape)) + 1, dtype=torch.bool,
+                        device=cuda_device)[1:].view(shape)
+    args = _k4_inputs(cuda_device, shape, True, store=store)
+    assert args[2].is_contiguous() and args[2].data_ptr() % 4 != 0
+    _k4_check(args)
+
+
+@pytest.mark.parametrize("field,delta", [
+    ("threads", -32), ("rows_per_block", -1), ("blocks", 1),
+    ("blocks", -1), ("vec", 1)])
+def test_k4_refuses_a_geometry_that_does_not_fit(cuda_device, monkeypatch,
+                                                 field, delta):
+    """The C entry launches with ``launch_geometry``'s values as given and
+    refuses those that do not fit the build or the shapes: a launch that
+    would miss a row or hold a block without one is never made."""
+    args = _k4_inputs(cuda_device, (8, 512, 512), False)
+    geometry = bidk.launch_geometry
+
+    def bent(*a):
+        g = geometry(*a)
+        return g._replace(**{field: getattr(g, field) + delta})
+    monkeypatch.setattr(bidk, "launch_geometry", bent)
+    before = bidk.bidding.launches
+    with pytest.raises(RuntimeError, match="bidding"):
+        bidk.bidding(*args)
+    assert bidk.bidding.launches == before
+
+
+def test_k4_refuses_the_vector_path_where_rows_are_not_4_columns(
+        cuda_device):
+    """n_c % 4 != 0 with the vector path forced on it: refused."""
+    args = _k4_inputs(cuda_device, (2, 40, 37), True)
+    forced = _k4_geometry(args)._replace(vec=1)
+    before = bidk.bidding.launches
+    with pytest.raises(RuntimeError, match="bidding"):
+        bidk._bidding(*args, forced)
+    assert bidk.bidding.launches == before
 
 
 # (shape, share of rows labeled, roots): the 16-column and scalar (n_c =
