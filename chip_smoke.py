@@ -55,7 +55,33 @@ Drives ``src/repro_torch`` only (no ``jax``, nothing of ``repro``):
    the wgmma kernel ``flash_fwd_wgmma``, and never in a decode step.
    Matmuls stay in full float32 (``torch.backends.cuda.matmul.allow_tf32``
    is False);
-8. reads the launch counts of every solve of phases 3 to 7 (each set to 0
+8. drives the batch front end, compaction and refill (``phase_batch``,
+   ROADMAP M3) on three ragged queues from SEED through ``solve_batch``
+   with ``backend="pallas"``: 8 ``random_grid_problem`` grids of 128^2 to
+   512^2 (``BATCH_GRID_SHAPES``) padded to one 8 x 512^2 bucket
+   (``bucket="max"``), 8 assignment weight matrices in [0, 100] of n =
+   128 to 512 (``BATCH_ASSIGN_NS``, auction) in pow2 buckets of 128, 256
+   and 512, and 4 Erdos-Renyi graphs at p = 4 / n_r of 1024^2 to 4096^2
+   (``BATCH_MATCH_SHAPES``, ``bucket="max"``). Each queue is solved
+   masked and compacted in turns (masked, compacted, compacted, masked)
+   after a masked warm-up: compacted must equal masked on every leaf,
+   counter and ``BucketStats`` (but its ``compact`` flag), each driver's
+   second solve its first, every result its oracle (scipy's flows and
+   weights, Hopcroft-Karp's cardinalities), and each solve must launch
+   the path's kernels (K1 and K3, K4, K5). The grid queue runs once more
+   on ``backend="balanced"`` (K2, K3), compacted against masked. Then a
+   ``RefillSolver`` of ``REFILL_CAPACITY`` (4) slots per kind on the
+   queue's largest bucket shape is seeded with 4 of that bucket's
+   requests and admits the others (the bucket's requests again where it
+   holds no more than 4): at least one must enter after cycle 0, and
+   every result must equal that request's closed masked batch result on
+   every leaf. ``[batch]`` lines give per queue the walls in turns,
+   device busy and idle share of each driver (one device-only profile
+   each), the instances each driver computed (the sum of
+   ``CycleEvent.gathered``: bucket size x cycles for the masked one),
+   the device time of the compacted driver's gathers and scatters
+   (``GATHER_SCATTER_KERNELS``) and the kernels' launches per solve;
+9. reads the launch counts of every solve of phases 3 to 8 (each set to 0
    just before its solve and read just after) and fails if a kernel of
    that solve was never launched, or if K4 or K5 was launched by an
    ``xla`` solve. K3 counts launches (one per call of up to 8 sweeps) and
@@ -69,6 +95,7 @@ repository.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import pathlib
 import subprocess
@@ -140,6 +167,22 @@ FLASH_TAILS = [
     ((1, 100, 1000, 4, 1, 72, 40), False, torch.bfloat16),
     ((1, 65, 65, 2, 1, 256, 256), True, torch.bfloat16),
 ]
+# phase_batch: ragged queues through the batch front end (``solve_batch``),
+# each solved masked and compacted in turns. Grids are random_grid_problem
+# (max_cap 10, terminal density 0.5) padded to one 8 x 512^2 bucket;
+# assignment weights uniform in [0, 100] in pow2 buckets of 128, 256 and
+# 512; matching Erdos-Renyi graphs at p = 4 / n_r padded to 4096^2. Then
+# one RefillSolver per kind of REFILL_CAPACITY slots on the queue's
+# largest bucket shape
+BATCH_GRID_SHAPES = ((128, 128), (192, 256), (256, 256), (320, 384),
+                     (384, 384), (448, 512), (512, 512), (512, 512))
+BATCH_ASSIGN_NS = (128, 192, 256, 320, 384, 448, 509, 512)
+BATCH_MATCH_SHAPES = ((1024, 1024), (2048, 3000), (3000, 4096),
+                      (4096, 4096))
+REFILL_CAPACITY = 4
+# the kernels of the compacted driver's gathers (``index_select``) and
+# scatters (``index_copy_``), by name; the solves launch them nowhere else
+GATHER_SCATTER_KERNELS = ("indexSelect", "index_copy")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 FP32_OPS_PER_S = 67e12         # H100 SXM non-tensor 32-bit rate (data sheet)
 # H100 SXM dense tensor-core rates (data sheet): K6 runs a float32 product
@@ -183,16 +226,31 @@ PORT_KERNEL_SYMBOLS = tuple(
               "frontier_", "flash_fwd_"))
 
 
-def device_events(prof):
+def device_events(averages):
     """``(self device us, count, name)`` of every device-side event of a
-    ``torch.profiler`` run (kernels, memsets, copies), largest first. The
-    host ops that launched them report the same time again, so they are
-    left out."""
+    ``torch.profiler`` run's ``key_averages()`` (kernels, memsets,
+    copies), largest first. The host ops that launched them report the
+    same time again, so they are left out."""
     from torch.autograd import DeviceType
     return sorted(((ev.self_device_time_total, ev.count, ev.key)
-                   for ev in prof.key_averages()
+                   for ev in averages
                    if ev.device_type == DeviceType.CUDA
                    and ev.self_device_time_total > 0), reverse=True)
+
+
+def trace_device_events(prof):
+    """``device_events`` read from the raw trace of a ``torch.profiler``
+    run made without ``acc_events``: the same rows, without the Python
+    event tree the profiler builds for ``key_averages()``, which takes
+    tens of seconds for a solve of 100,000 device ops."""
+    from torch.autograd import DeviceType
+    acc = {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == DeviceType.CUDA and ev.duration_ns() > 0:
+            us, n = acc.get(ev.name(), (0.0, 0))
+            acc[ev.name()] = (us + ev.duration_ns() / 1e3, n + 1)
+    return sorted(((us, n, key) for key, (us, n) in acc.items()),
+                  reverse=True)
 
 
 class Timing(NamedTuple):
@@ -222,7 +280,7 @@ def profiled_ms(run, reps: int, symbol: str | None = None,
             for i in range(reps):
                 run(i)
             torch.cuda.synchronize()
-        rows = [r for r in device_events(prof)
+        rows = [r for r in device_events(prof.key_averages())
                 if not only_symbol or symbol in r[2]]
         if (rows and all(r[1] >= 0.9 * reps for r in rows)
                 and (symbol is None or any(symbol in r[2] for r in rows))):
@@ -845,22 +903,26 @@ def solve(fn, *a, **kw):
 
 
 def profile(what: str, wall: float, fn, *a, **kw) -> dict:
-    """One more run of ``fn`` under ``torch.profiler``: device busy time
-    (the sum of every device op's own time), the ops that take most of it,
-    and the port's own kernels (their time inside the solve). The idle
-    share divides busy by ``wall``, the unprofiled solve's time, since the
+    """One more run of ``fn`` under ``torch.profiler``, tracing the device
+    alone: device busy time (the sum of every device op's own time), the
+    ops that take most of it, the port's own kernels (their time inside
+    the solve) and the gathers' and scatters' (``GATHER_SCATTER_KERNELS``),
+    summed from the raw trace (``trace_device_events``). The idle share
+    divides busy by ``wall``, the unprofiled solve's time, since the
     profiler slows the host. Outside the counted runs. Returns the busy
-    seconds, the idle share, the number of device ops (kernels, copies,
-    memsets) and ``{kernel: (ms, launches)}`` of the port's kernels."""
+    seconds, the idle
+    share, the number of device ops (kernels, copies, memsets),
+    ``{kernel: (ms, launches)}`` of the port's kernels and the gathers'
+    and scatters' ms."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
-    with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA],
-                       acc_events=True) as prof:
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
         _, secs = solve(fn, *a, **kw)
-    rows = device_events(prof)
+    rows = trace_device_events(prof)
     busy = sum(r[0] for r in rows) / 1e6
     launches = sum(r[1] for r in rows)
+    gather_ms = sum(r[0] for r in rows
+                    if any(k in r[2] for k in GATHER_SCATTER_KERNELS)) / 1e3
     log(f"[profile] {what}: wall {wall:.4f} s unprofiled ({secs:.4f} s "
         f"profiled), device busy {busy:.4f} s, idle share "
         f"{1 - busy / wall:.3f}, {launches} device ops")
@@ -876,7 +938,7 @@ def profile(what: str, wall: float, fn, *a, **kw) -> dict:
         log(f"[profile]   port kernel {name}: {ms:.3f} ms over {count} "
             f"launches, {ms / count:.4f} ms each")
     return dict(busy_s=busy, idle_share=1 - busy / wall, launches=launches,
-                port_kernels=port)
+                port_kernels=port, gather_scatter_ms=gather_ms)
 
 
 def check_oracle(res, oracle, what: str, invariant: bool = True):
@@ -1169,6 +1231,260 @@ def k5_reads(dev, adj, check) -> tuple[int, int]:
     return len(seen), sum(seen)
 
 
+class Queue(NamedTuple):
+    """One ragged queue of ``phase_batch``."""
+    kind: str
+    payloads: list
+    bucket: str
+    kw: dict          # solver knobs besides ``device``
+    kernels: tuple    # the kernels its solves must launch
+
+
+def batch_queues() -> list:
+    """The three ragged queues of ``phase_batch``, from SEED."""
+    from repro_torch.core.matching.ref import random_bipartite
+    from repro_torch.core.maxflow.grid import GridProblem
+    from repro_torch.core.maxflow.ref import random_grid_problem
+    rng = np.random.default_rng(SEED)
+    grids = [GridProblem(*random_grid_problem(rng, h, w))
+             for h, w in BATCH_GRID_SHAPES]
+    ws = [rng.integers(0, 101, (n, n)) for n in BATCH_ASSIGN_NS]
+    adjs = [random_bipartite(rng, nl, nr, 4 / nr)
+            for nl, nr in BATCH_MATCH_SHAPES]
+    return [
+        Queue("maxflow", grids, "max", dict(backend="pallas"),
+              ("grid_push_decide", "bfs_relabel_sweeps")),
+        Queue("assignment", ws, "pow2",
+              dict(backend="pallas", method="auction"), ("bidding",)),
+        Queue("matching", adjs, "max", dict(backend="pallas"),
+              ("frontier",)),
+    ]
+
+
+def batch_oracle(q: Queue) -> list:
+    """scipy's flows and optimal weights, Hopcroft-Karp's cardinalities."""
+    from repro_torch.core.assignment.ref import optimal_weight
+    from repro_torch.core.matching.ref import hopcroft_karp
+    from repro_torch.core.maxflow.ref import maxflow_grid_ref
+    if q.kind == "maxflow":
+        return [maxflow_grid_ref(*p) for p in q.payloads]
+    if q.kind == "assignment":
+        return [optimal_weight(w) for w in q.payloads]
+    return [hopcroft_karp(a)[2] for a in q.payloads]
+
+
+def check_batch(kind: str, res: list, oracle: list, what: str):
+    """Every request converged to the oracle's value."""
+    field = {"maxflow": "flow", "assignment": "weight",
+             "matching": "cardinality"}[kind]
+    got = [getattr(r, field).item() for r in res]
+    if not all(bool(r.converged) for r in res):
+        raise AssertionError(f"{what}: not converged")
+    if got != oracle:
+        raise AssertionError(f"{what}: {field} {got} != oracle {oracle}")
+
+
+def drive_queue(q: Queue, dev, counts: dict, oracle: list,
+                label: str) -> dict:
+    """``solve_batch`` on ``q`` masked and compacted in turns (masked,
+    compacted, compacted, masked) after one uncounted masked solve. The
+    cycle events of that warm-up (a ``masked=True`` hook) and of the first
+    compacted solve (a plain hook: that driver reads its live set every
+    cycle anyway) count the instances each driver computes. Launch counts
+    are set to 0 just before each solve and read just after, under
+    ``counts[f"{label}_{driver}"]``; a driver's second solve must launch
+    what its first did and give the same results and ``BucketStats``.
+    Compacted must equal masked on every leaf and counter and on every
+    ``BucketStats`` but its ``compact`` flag; every solve is checked
+    against the oracle. Each driver is profiled once. Returns the masked
+    results (``to_numpy``), walls, profiles and cycle events."""
+    from repro_torch.core.batch import solve_batch
+    from repro_torch.core.solver_loop import cycle_events
+    from repro_torch.interop import to_numpy
+
+    def run(compact, stats=None):
+        return solve_batch(q.kind, q.payloads, bucket=q.bucket,
+                           compact=compact, stats_out=stats, device=dev,
+                           **q.kw)
+
+    drivers = {False: "masked", True: "compacted"}
+    events = {False: [], True: []}
+    with cycle_events(events[False].append, masked=True):
+        solve(run, False)
+    walls, results, stats = {False: [], True: []}, {}, {}
+    for compact in (False, True, True, False):
+        name = f"{label}_{drivers[compact]}"
+        st = []
+        record = compact and not events[True]
+        reset_counts()
+        with (cycle_events(events[True].append) if record
+              else contextlib.nullcontext()):
+            res, wall = solve(run, compact, st)
+        got = read_counts()
+        check_batch(q.kind, res, oracle, name)
+        out = [to_numpy(r) for r in res]
+        if name in counts:
+            if got != counts[name]:
+                raise AssertionError(f"{name}: launches {got} != first "
+                                     f"solve's {counts[name]}")
+            for i, (a, b) in enumerate(zip(out, results[compact])):
+                require_same(a, b, f"{name} rerun, request {i}")
+            if st != stats[compact]:
+                raise AssertionError(f"{name} rerun: BucketStats differ")
+        counts.setdefault(name, got)
+        results.setdefault(compact, out)
+        stats.setdefault(compact, st)
+        walls[compact].append(wall)
+        log(f"[batch] {name}: {wall:.4f} s, launches {got}")
+    for i, (a, b) in enumerate(zip(results[True], results[False])):
+        require_same(a, b, f"{label} compacted vs masked, request {i}")
+    if [x._replace(compact=False) for x in stats[True]] != stats[False]:
+        raise AssertionError(f"{label}: compacted BucketStats "
+                             f"{stats[True]} != masked {stats[False]}")
+    for compact in (False, True):
+        require_launched(counts[f"{label}_{drivers[compact]}"], q.kernels,
+                         f"{label}_{drivers[compact]}")
+    buckets = [(x.shape, x.n_real, round(x.spread, 3)) for x in stats[True]]
+    log(f"[batch] {label}: buckets (shape, requests, rounds spread) "
+        f"{buckets}")
+    profiles = {compact: profile(f"{label} {drivers[compact]}",
+                                 sum(walls[compact]) / 2, run, compact)
+                for compact in (False, True)}
+    return dict(results=results[False], walls=walls, profiles=profiles,
+                events=events)
+
+
+def batch_report(label: str, q: Queue, out: dict, counts: dict,
+                 card: str):
+    """The ``[batch]`` lines of one queue: walls in turns, device busy and
+    idle share, the instances each driver computed (the sum of
+    ``CycleEvent.gathered``: bucket size x cycles for the masked driver),
+    the device time of the compacted driver's gathers and scatters, and
+    the kernels' launches per solve."""
+    w, p, ev = out["walls"], out["profiles"], out["events"]
+    g_masked = sum(e.gathered for e in ev[False])
+    g_comp = sum(e.gathered for e in ev[True])
+    live = sum(e.n_live for e in ev[True])
+    log(f"[batch] {label} on {card}: walls masked "
+        f"{w[False][0]:.4f} / {w[False][1]:.4f} s, compacted "
+        f"{w[True][0]:.4f} / {w[True][1]:.4f} s (in turns m, c, c, m)")
+    log(f"[batch] {label}: device busy masked {p[False]['busy_s']:.4f} s "
+        f"(idle share {p[False]['idle_share']:.3f}), compacted "
+        f"{p[True]['busy_s']:.4f} s (idle share "
+        f"{p[True]['idle_share']:.3f}); gather/scatter device "
+        f"{p[True]['gather_scatter_ms']:.3f} ms compacted, "
+        f"{p[False]['gather_scatter_ms']:.3f} ms masked")
+    if ev[False]:
+        log(f"[batch] {label}: instance-cycles computed, masked (bucket "
+            f"size x cycles) {g_masked}, compacted (sum of gathered) "
+            f"{g_comp}, live {live}: {1 - g_comp / g_masked:.1%} fewer; "
+            f"{len(ev[False])} masked and {len(ev[True])} compacted cycles")
+    keys = ("grid_push_decide", "grid_push_decide_sched",
+            "bfs_relabel_sweeps", "bidding", "frontier")
+    for driver in ("masked", "compacted"):
+        c = counts[f"{label}_{driver}"]
+        log(f"[batch] {label} {driver}: launches per solve "
+            f"{ {k: c[k] for k in keys if c[k]} }")
+
+
+def drive_refill(q: Queue, dev, counts: dict, masked: list):
+    """A ``RefillSolver`` of ``REFILL_CAPACITY`` slots on ``q``'s largest
+    bucket shape, seeded with the first requests of that bucket; ``admit``
+    supplies the others (the bucket's requests again where it holds no
+    more than the capacity) as slots free up. At least one must enter
+    after cycle 0, and every request's result must equal its closed
+    masked batch result (``masked``, same padding shape) on every leaf."""
+    from repro_torch.core.batch import prepare_buckets
+    from repro_torch.core.refill import RefillSolver
+    from repro_torch.core.solver_loop import cycle_events
+    from repro_torch.interop import to_numpy
+    big = max(prepare_buckets(q.kind, q.payloads, bucket=q.bucket),
+              key=lambda b: int(np.prod(b.shape)))
+    order = list(big.idxs)
+    while len(order) <= REFILL_CAPACITY:
+        order += list(big.idxs)
+    rest = order[REFILL_CAPACITY:]
+    cycle, admitted = [None], []
+
+    def admit(n_free):
+        take = rest[:n_free]
+        del rest[:n_free]
+        if take:
+            admitted.append((cycle[0], len(take)))
+        return [q.payloads[i] for i in take]
+
+    session = RefillSolver(q.kind, shape=big.shape,
+                           capacity=REFILL_CAPACITY, device=dev, **q.kw)
+    name = f"refill_{q.kind}"
+    reset_counts()
+    with cycle_events(lambda ev: cycle.__setitem__(0, ev.cycle)):
+        got, wall = solve(session.run,
+                          [q.payloads[i] for i in order[:REFILL_CAPACITY]],
+                          admit=admit)
+    counts[name] = read_counts()
+    require_launched(counts[name], q.kernels, name)
+    if sorted(got) != list(range(len(order))):
+        raise AssertionError(f"{name}: results for {sorted(got)}")
+    for r, i in enumerate(order):
+        require_same(to_numpy(got[r]), masked[i],
+                     f"{name}: request {r} (payload {i}) vs closed batch")
+    late = sum(n for c, n in admitted if c is not None)
+    if late < 1:
+        raise AssertionError(f"{name}: no admission after cycle 0 "
+                             f"({admitted})")
+    log(f"[batch] {name}: {len(order)} requests on {big.shape} x "
+        f"{REFILL_CAPACITY} slots, admitted (after cycle, n) {admitted}, "
+        f"{wall:.4f} s, launches {counts[name]}; every result equals its "
+        f"closed masked batch")
+
+
+def phase_batch(dev, counts: dict, card: str) -> dict:
+    """The batch front end, compaction and refill on the card (ROADMAP
+    M3): the three ragged queues masked and compacted in turns
+    (``drive_queue``, ``batch_report``), the maxflow queue once more on
+    the balanced backend (K2, K3; one solve per driver), then a refill
+    session per kind (``drive_refill``). Returns walls and busy times."""
+    summary = {}
+    for q in batch_queues():
+        oracle = batch_oracle(q)
+        log(f"[batch] {q.kind}: {len(q.payloads)} requests, bucket "
+            f"{q.bucket!r}, {q.kw}, oracle {oracle}")
+        label = f"batch_{q.kind}"
+        out = drive_queue(q, dev, counts, oracle, label)
+        batch_report(label, q, out, counts, card)
+        summary[label] = {d: dict(walls=out["walls"][c],
+                                  busy_s=out["profiles"][c]["busy_s"])
+                          for c, d in ((False, "masked"),
+                                       (True, "compacted"))}
+        if q.kind == "maxflow":
+            bal = q._replace(kw=dict(backend="balanced"),
+                             kernels=("grid_push_decide_sched",
+                                      "bfs_relabel_sweeps"))
+            drive_balanced(bal, dev, counts, oracle)
+        drive_refill(q, dev, counts, out["results"])
+    return summary
+
+
+def drive_balanced(q: Queue, dev, counts: dict, oracle: list):
+    """The maxflow queue on ``backend="balanced"``: one masked and one
+    compacted solve, oracle flows, equal on every leaf."""
+    from repro_torch.core.batch import solve_batch
+    from repro_torch.interop import to_numpy
+    out = {}
+    for compact, driver in ((False, "masked"), (True, "compacted")):
+        name = f"batch_maxflow_balanced_{driver}"
+        reset_counts()
+        res, wall = solve(solve_batch, q.kind, q.payloads, bucket=q.bucket,
+                          compact=compact, device=dev, **q.kw)
+        counts[name] = read_counts()
+        check_batch(q.kind, res, oracle, name)
+        require_launched(counts[name], q.kernels, name)
+        out[driver] = [to_numpy(r) for r in res]
+        log(f"[batch] {name}: {wall:.4f} s, launches {counts[name]}")
+    for i, (a, b) in enumerate(zip(out["compacted"], out["masked"])):
+        require_same(a, b, f"balanced compacted vs masked, request {i}")
+
+
 def serve_prompts(vocab: int, B: int = SERVE_B, S: int = SERVE_S,
                   seed: int = SEED + 1) -> np.ndarray:
     """The serve phase's ``(B, S)`` int32 prompt tokens."""
@@ -1361,6 +1677,9 @@ def main() -> int:
     kernels["bidding"]["in_solve"] = phase_assignment(dev, counts)
     kernels["frontier"]["in_solve"] = phase_matching(dev, counts)[
         "k5_in_solve"]
+    t_batch = time.perf_counter()
+    batch = phase_batch(dev, counts, card)
+    log(f"[batch] done in {time.perf_counter() - t_batch:.1f} s: {batch}")
     serve = phase_serve(dev, counts)
     k6 = serve["prefill"]["port_kernels"]
     kernels["flash_attention_fwd"]["prefill_ms_per_launch"] = (

@@ -35,6 +35,7 @@ Entry points run on the card unless ``device="cpu"`` is passed.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -42,7 +43,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.masking import freeze
-from repro_torch.core.solver_loop import LoopSpec, run_masked
+from repro_torch.core.solver_loop import LoopSpec, run_compacted, run_masked
 from repro_torch.kernels.bidding.ops import bidding_op
 
 INF = 2 ** 30
@@ -305,10 +306,12 @@ def _scale_init(w, *, alpha: int) -> _ScaleState:
                        st=_refine_init(c, eps0, st))
 
 
+@functools.lru_cache(maxsize=None)
 def _assignment_spec(method: str, alpha: int, max_rounds: int,
                      rounds_per_heuristic: int, use_price_update: bool,
                      use_arc_fixing: bool, backend: str) -> LoopSpec:
-    """The assignment solver's registration with the solver-loop runtime.
+    """The assignment solver's registration with the solver-loop runtime,
+    cached per static-knob tuple (one spec object per configuration).
 
     One cycle = ``rounds_per_heuristic`` Jacobi rounds, the price-update
     sweep (paper Alg. 5.3) and, for instances whose refine just finished
@@ -421,9 +424,12 @@ def solve_assignment(
       use_arc_fixing: freeze arcs with ``c_p > 2nε`` between refines.
       backend: ``"xla"`` (plain tensor code) or ``"pallas"`` (the bidding
         stage on K4, ``repro_torch.kernels.bidding``); equal results.
-      compact / mesh / mesh_axis: early-exit compaction and device lanes
-        are not ported yet (ROADMAP items M3 and M7) and raise
-        ``NotImplementedError``.
+      compact: early-exit compaction (``repro_torch.core.solver_loop``;
+        batched ``(B, n, n)`` weights only): instances whose ε schedule
+        finished leave the working set between cycles instead of being
+        select-masked until the batch drains; equal results.
+      mesh / mesh_axis: device lanes are not ported yet (ROADMAP item M7)
+        and raise ``NotImplementedError``.
       device: where to solve; ``None`` means ``"cuda"`` (raises without a
         card), ``"cpu"`` runs K4's plain version.
 
@@ -441,10 +447,11 @@ def solve_assignment(
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; valid: "
                          f"{', '.join(BACKENDS)}")
-    if compact:
-        raise NotImplementedError(
-            "compact=True (early-exit compaction) is not ported yet: "
-            "ROADMAP item M3")
+    if compact and w.ndim != 3:
+        raise ValueError(
+            f"compact=True needs batched (B, n, n) weights, got shape "
+            f"{tuple(w.shape)}; compaction drops converged instances from "
+            f"a batch axis")
     if mesh is not None or mesh_axis is not None:
         raise NotImplementedError(
             "mesh= (device lanes) is not ported yet: ROADMAP item M7")
@@ -455,5 +462,8 @@ def solve_assignment(
     state = _scale_init(w_i, alpha=alpha)
     spec = _assignment_spec(method, alpha, max_rounds, rounds_per_heuristic,
                             use_price_update, use_arc_fixing, backend)
-    state, _ = run_masked(spec, state, tuple(state.eps.shape))
+    if compact:
+        state, _ = run_compacted(spec, state, w.shape[0])
+    else:
+        state, _ = run_masked(spec, state, tuple(state.eps.shape))
     return _assignment_finalize(w_i, state.st)

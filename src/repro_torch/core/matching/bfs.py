@@ -31,13 +31,14 @@ Entry points run on the card unless ``device="cpu"`` is passed.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core.solver_loop import LoopSpec, run_masked
+from repro_torch.core.solver_loop import LoopSpec, run_compacted, run_masked
 from repro_torch.kernels.frontier.ops import frontier_op
 
 INF = 2 ** 30
@@ -176,9 +177,10 @@ def _phase(state: MatchState, backend: str) -> MatchState:
     return MatchState(adj=adj, match_row=mr, match_col=mc, progress=progress)
 
 
+@functools.lru_cache(maxsize=None)
 def _matching_spec(max_rounds: int, backend: str) -> LoopSpec:
     """The matching solver's registration with the solver-loop runtime:
-    one cycle = one BFS augmenting-path phase."""
+    one cycle = one BFS augmenting-path phase (cached per knob pair)."""
 
     def cycle(state: MatchState) -> MatchState:
         return _phase(state, backend)
@@ -211,14 +213,24 @@ def _match_finalize(state: MatchState, rounds) -> MatchingResult:
         rounds=rounds, converged=~state.progress)
 
 
-def _solve_match(adj, *, max_rounds, greedy_init, backend) -> MatchingResult:
-    """Shared masked solver loop, rank-polymorphic over leading batch axes."""
+def _check_backend(backend: str) -> None:
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; valid: "
                          f"{', '.join(BACKENDS)}")
+
+
+def _solve_match(adj, *, max_rounds, greedy_init, backend,
+                 compact=False) -> MatchingResult:
+    """Shared solver loop, rank-polymorphic over leading batch axes;
+    ``compact`` (one batch axis): early-exit compaction, an instance whose
+    maximality is certified leaves the working set between phases."""
+    _check_backend(backend)
     state = _match_init(adj, greedy_init=greedy_init)
     spec = _matching_spec(max_rounds, backend)
-    state, rounds = run_masked(spec, state, tuple(adj.shape[:-2]))
+    if compact:
+        state, rounds = run_compacted(spec, state, adj.shape[0])
+    else:
+        state, rounds = run_masked(spec, state, tuple(adj.shape[:-2]))
     return _match_finalize(state, rounds)
 
 
@@ -285,9 +297,11 @@ def match_bipartite_batch(
       adj: ``(B, nl, nr)`` bool — a stack of single-instance adjacencies.
       max_rounds / greedy_init / backend / device: as in
         ``match_bipartite`` (applied per instance).
-      compact / mesh / mesh_axis: early-exit compaction and device lanes
-        are not ported yet (ROADMAP items M3 and M7) and raise
-        ``NotImplementedError``.
+      compact: early-exit compaction (``repro_torch.core.solver_loop``):
+        an instance whose maximality is certified leaves the working set
+        between phases; equal results.
+      mesh / mesh_axis: device lanes are not ported yet (ROADMAP item M7)
+        and raise ``NotImplementedError``.
 
     Returns ``MatchingResult`` with every leaf leading with the batch axis;
     it equals a loop of single solves leaf for leaf.
@@ -296,13 +310,9 @@ def match_bipartite_batch(
         raise ValueError(
             f"match_bipartite_batch expects adj (B, nl, nr), got "
             f"{tuple(adj.shape)}; use match_bipartite for a single instance")
-    if compact:
-        raise NotImplementedError(
-            "compact=True (early-exit compaction) is not ported yet: "
-            "ROADMAP item M3")
     if mesh is not None or mesh_axis is not None:
         raise NotImplementedError(
             "mesh= (device lanes) is not ported yet: ROADMAP item M7")
     return _solve_match(_load_adj(adj, resolve_device(device)),
                         max_rounds=max_rounds, greedy_init=greedy_init,
-                        backend=backend)
+                        backend=backend, compact=compact)

@@ -29,13 +29,14 @@ Entry points run on the card unless ``device="cpu"`` is passed.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core.solver_loop import LoopSpec, run_masked
+from repro_torch.core.solver_loop import LoopSpec, run_compacted, run_masked
 
 UP, DOWN, LEFT, RIGHT = 0, 1, 2, 3
 _OPP = (DOWN, UP, RIGHT, LEFT)
@@ -239,10 +240,12 @@ def _round_fn(backend: str):
         f"{', '.join(VALID_BACKENDS)}")
 
 
+@functools.lru_cache(maxsize=None)
 def _grid_spec(rounds_per_heuristic: int, max_rounds: int,
                bfs_max_iters: int, backend: str,
                stall_threshold: float = 0.05) -> LoopSpec:
-    """The grid solver's registration with the solver-loop runtime.
+    """The grid solver's registration with the solver-loop runtime,
+    cached per static-knob tuple (one spec object per configuration).
 
     Every backend's cycle is exactly ``rounds_per_heuristic`` rounds. The
     fixed-cadence backends end it with an unconditional global relabel;
@@ -303,7 +306,8 @@ def _grid_spec(rounds_per_heuristic: int, max_rounds: int,
 
     return LoopSpec(cycle=cycle, live=live,
                     rounds_per_cycle=rounds_per_heuristic,
-                    lead_axes_fn=lead_axes)
+                    lead_axes_fn=lead_axes,
+                    heur=lambda s: s.heur)
 
 
 def _grid_init(cap0, cs0, ct0, *, bfs_max_iters: int) -> GridFlowState:
@@ -352,16 +356,23 @@ def _grid_finalize(state: GridFlowState, rounds, *,
 
 
 def _solve_grid(cap0, cs0, ct0, *, rounds_per_heuristic, max_rounds,
-                bfs_max_iters, backend,
-                stall_threshold=0.05) -> GridFlowResult:
-    """Shared masked solve, rank-polymorphic over leading batch axes.
+                bfs_max_iters, backend, stall_threshold=0.05,
+                compact=False) -> GridFlowResult:
+    """Shared solve, rank-polymorphic over leading batch axes.
 
     ``cs0``/``ct0`` are ``(..., H, W)`` with ``cap0`` ``(4, ..., H, W)``.
+    ``compact`` (one batch axis): ``run_compacted`` gathers the still-live
+    instances into dense pow2-sized sub-batches between cycles, so a
+    converged instance stops costing device time instead of being
+    select-masked until the whole batch drains; equal results.
     """
     spec = _grid_spec(rounds_per_heuristic, max_rounds, bfs_max_iters,
                       backend, stall_threshold)
     state = _grid_init(cap0, cs0, ct0, bfs_max_iters=bfs_max_iters)
-    state, rounds = run_masked(spec, state, tuple(cs0.shape[:-2]))
+    if compact:
+        state, rounds = run_compacted(spec, state, cs0.shape[0])
+    else:
+        state, rounds = run_masked(spec, state, tuple(cs0.shape[:-2]))
     return _grid_finalize(state, rounds, bfs_max_iters=bfs_max_iters)
 
 
@@ -445,9 +456,12 @@ def maxflow_grid_batch(
         ``(B, 4, H, W)``, ``cap_src``/``cap_sink`` ``(B, H, W)``.
       rounds_per_heuristic / max_rounds / bfs_max_iters / backend /
         stall_threshold / device: as in ``maxflow_grid``, per instance.
-      compact / mesh / mesh_axis: early-exit compaction and device lanes
-        are not ported yet (ROADMAP items M3 and M7) and raise
-        ``NotImplementedError``.
+      compact: early-exit compaction (``repro_torch.core.solver_loop``):
+        between cycles the host gathers the still-live instances into a
+        dense pow2-sized sub-batch, so a converged instance stops costing
+        device time. Worth it when convergence is ragged; equal results.
+      mesh / mesh_axis: device lanes are not ported yet (ROADMAP item M7)
+        and raise ``NotImplementedError``.
 
     Returns:
       ``GridFlowResult`` whose leaves lead with the batch axis:
@@ -466,10 +480,6 @@ def maxflow_grid_batch(
         raise ValueError(
             f"shapes do not match: cap_nbr {tuple(cap0.shape)}, cap_src "
             f"{tuple(cs0.shape)}, cap_sink {tuple(ct0.shape)}")
-    if compact:
-        raise NotImplementedError(
-            "compact=True (early-exit compaction) is not ported yet: "
-            "ROADMAP item M3")
     if mesh is not None or mesh_axis is not None:
         raise NotImplementedError(
             "mesh= (device lanes) is not ported yet: ROADMAP item M7")
@@ -479,7 +489,8 @@ def maxflow_grid_batch(
                       _load(cs0, dev), _load(ct0, dev),
                       rounds_per_heuristic=rounds_per_heuristic,
                       max_rounds=max_rounds, bfs_max_iters=bfs_max_iters,
-                      backend=backend, stall_threshold=stall_threshold)
+                      backend=backend, stall_threshold=stall_threshold,
+                      compact=compact)
     # public layout: batch axis leads everywhere, including state.cap
     return res._replace(state=res.state._replace(
         cap=torch.movedim(res.state.cap, 0, 1).contiguous()))

@@ -4,7 +4,8 @@ Counterpart of ``repro/serve/engine.py``, its LLM half:
 ``make_prefill_step`` runs the prompt through the model (K6 attention on
 the card) and fills the KV caches, ``make_serve_step`` decodes one new
 token for every request against them, ``greedy_generate`` loops the two.
-The solver half (``SolverEngine``) waits for ROADMAP M3/M8.
+The solver half (``SolverEngine``) waits for ROADMAP M8; the layer it
+rides, ``repro_torch.core.batch`` and ``repro_torch.core.refill``, is here.
 
 The JAX steps take the params tree as an argument; here the parameters
 live in the ``Model``, so the step makers take the model. Steps run under

@@ -194,8 +194,8 @@ def test_errors():
         tc.solve_assignment(w, backend="triton", device="cpu")
     with pytest.raises(ValueError, match=r"\(B, n, n\)"):
         tc.solve_assignment(w[:, :3], device="cpu")
-    with pytest.raises(NotImplementedError, match="M3"):
-        tc.solve_assignment(w[None], compact=True, device="cpu")
+    with pytest.raises(ValueError, match="batched"):   # compaction: M3
+        tc.solve_assignment(w, compact=True, device="cpu")
     with pytest.raises(NotImplementedError, match="M7"):
         tc.solve_assignment(w[None], mesh=object(), device="cpu")
 

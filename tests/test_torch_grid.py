@@ -170,8 +170,9 @@ def test_shape_and_backend_errors():
         tg.maxflow_grid(single, backend="nope", device="cpu")
     with pytest.raises(ValueError, match="balanced"):
         tg.maxflow_grid_batch(batch, backend="nope", device="cpu")
-    with pytest.raises(NotImplementedError, match="M3"):
-        tg.maxflow_grid_batch(batch, compact=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="M7"):   # lanes, not M3
+        tg.maxflow_grid_batch(batch, compact=True, mesh=object(),
+                              device="cpu")
     with pytest.raises(NotImplementedError, match="M7"):
         tg.maxflow_grid_batch(batch, mesh=object(), device="cpu")
 

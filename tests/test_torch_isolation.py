@@ -23,6 +23,8 @@ def _run(code: str, **kw) -> subprocess.CompletedProcess:
 
 
 def test_import_pulls_in_neither_jax_nor_repro():
+    """Every module imports, and the registry's lazy builtin imports
+    resolve, without ``jax`` or ``repro`` in ``sys.modules``."""
     code = (
         "import sys\n"
         "import repro_torch.core.maxflow.grid, repro_torch.interop\n"
@@ -36,6 +38,12 @@ def test_import_pulls_in_neither_jax_nor_repro():
         "import repro_torch.kernels.flash_attention.ops\n"
         "import repro_torch.configs.all, repro_torch.models.model\n"
         "import repro_torch.serve.engine, repro_torch.launch.serve\n"
+        "import repro_torch.core, repro_torch.core.kinds\n"
+        "import repro_torch.core.batch, repro_torch.core.refill\n"
+        "import repro_torch.core.solver_loop\n"
+        "from repro_torch.core.kinds import get_kind, registered_kinds\n"
+        "assert get_kind('matching').name == 'matching'\n"
+        "assert registered_kinds() == ('maxflow', 'assignment', 'matching')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "print(bad)\n")

@@ -17,12 +17,15 @@ from torch_parity import assert_same, bits_equal, cuda_device  # noqa: F401
 
 from repro_torch.configs.base import get_config, smoke_variant
 from repro_torch.core.assignment.cost_scaling import solve_assignment
+from repro_torch.core.assignment.ref import optimal_weight
+from repro_torch.core.batch import solve_batch
 from repro_torch.core.matching import match_bipartite_batch
-from repro_torch.core.matching.ref import random_bipartite
+from repro_torch.core.matching.ref import hopcroft_karp, random_bipartite
 from repro_torch.core.maxflow.grid import (INF_H, GridProblem,
                                            maxflow_grid_batch)
 from repro_torch.core.maxflow.ref import (checkerboard_problem,
                                           long_path_problem,
+                                          maxflow_grid_ref,
                                           random_grid_problem)
 from repro_torch.kernels.bfs_relabel import kernel as bk
 from repro_torch.kernels.bfs_relabel.ref import bfs_relabel_sweeps_ref
@@ -471,6 +474,102 @@ def test_matching_on_card_equals_cpu(cuda_device):
     want = match_bipartite_batch(adj, backend="pallas", device="cpu")
     assert_same(got, want)
     assert bool(got.converged.all())
+
+
+# Early-exit compaction on the card: the compacted solve launches every
+# kernel of its path at sub-batches of 1, 2, 4 ... instances and must give
+# the masked solve's bits; the padded shapes below take the kernels' other
+# paths (K2 whole-axis tiles, K4 scalar, K5 one column a load).
+
+
+def _require_same_results(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert_same(g, w)
+
+
+def _recording(monkeypatch, module, seen):
+    """Record the ``vec`` of every launch geometry ``module`` picks."""
+    geometry = module.launch_geometry
+
+    def recorded(*a, **kw):
+        g = geometry(*a, **kw)
+        seen.add(g.vec)
+        return g
+    monkeypatch.setattr(module, "launch_geometry", recorded)
+
+
+@pytest.mark.parametrize("backend", ["pallas", "balanced"])
+def test_compact_maxflow_on_card_equals_masked(cuda_device, backend):
+    """A ragged queue padded to 96 x 80, where 64 divides neither side:
+    K2's tiles are the whole grid. Compacted == masked on the card ==
+    compacted on the CPU; flows are the oracle's."""
+    rng = np.random.default_rng(11)
+    probs = []
+    for i, (h, w) in enumerate([(96, 80), (40, 64), (96, 72), (64, 80),
+                                (96, 80)]):
+        cap, cs, ct = random_grid_problem(rng, h, w)
+        if i % 2:
+            cs = np.minimum(cs, 1.0)
+        probs.append(GridProblem(cap, cs, ct))
+    assert tile_shape(96, 80) == (96, 80)
+    kw = dict(bucket="max", backend=backend, rounds_per_heuristic=8)
+    before = {f: f.launches for f in (gk.grid_push_decide,
+                                      gk.grid_push_decide_sched,
+                                      bk.bfs_relabel_sweeps)}
+    stats = []
+    got = solve_batch("maxflow", probs, compact=True, device=cuda_device,
+                      stats_out=stats, **kw)
+    launched = {f.__name__ for f, n in before.items() if f.launches > n}
+    assert launched == ({"grid_push_decide", "bfs_relabel_sweeps"}
+                        if backend == "pallas" else
+                        {"grid_push_decide_sched", "bfs_relabel_sweeps"})
+    assert stats[0].spread > 0, "queue not ragged"
+    _require_same_results(got, solve_batch("maxflow", probs,
+                                           device=cuda_device, **kw))
+    _require_same_results(got, solve_batch("maxflow", probs, compact=True,
+                                           device="cpu", **kw))
+    assert [float(r.flow) for r in got] == [maxflow_grid_ref(*p)
+                                            for p in probs]
+
+
+def test_compact_assignment_on_card_equals_masked(cuda_device, monkeypatch):
+    """n = 509 in an exact bucket: K4 on its scalar path (509 % 4 != 0),
+    at sub-batches of 2 and 1; the 256 bucket on its vector path."""
+    rng = np.random.default_rng(12)
+    ws = [rng.integers(0, 101, (n, n)) for n in (509, 256, 509)]
+    ws[2] //= 9                        # a shorter ε schedule
+    seen = set()
+    _recording(monkeypatch, bidk, seen)
+    kw = dict(bucket="exact", backend="pallas", method="auction")
+    got = solve_batch("assignment", ws, compact=True, device=cuda_device,
+                      **kw)
+    assert seen == {0, 1}, f"K4 paths {seen}: want scalar and vector"
+    assert int(got[0].rounds) != int(got[2].rounds), "bucket not ragged"
+    _require_same_results(got, solve_batch("assignment", ws,
+                                           device=cuda_device, **kw))
+    assert [int(r.weight) for r in got] == [optimal_weight(w) for w in ws]
+
+
+def test_compact_matching_on_card_equals_masked(cuda_device, monkeypatch):
+    """300 x 200 graphs: 200 % 16 != 0, so K5 reads one column a load."""
+    rng = np.random.default_rng(13)
+    adjs = [random_bipartite(rng, 300, 200, p)
+            for p in (4 / 200, 2 / 200, 8 / 200, 1 / 200)]
+    seen = set()
+    _recording(monkeypatch, frk, seen)
+    kw = dict(bucket="max", backend="pallas", greedy_init=False)
+    stats = []
+    got = solve_batch("matching", adjs, compact=True, device=cuda_device,
+                      stats_out=stats, **kw)
+    assert seen == {1}, f"K5 vec {seen}: want the one-column path"
+    assert stats[0].spread > 0, "queue not ragged"
+    _require_same_results(got, solve_batch("matching", adjs,
+                                           device=cuda_device, **kw))
+    _require_same_results(got, solve_batch("matching", adjs, compact=True,
+                                           device="cpu", **kw))
+    assert [int(r.cardinality) for r in got] == [hopcroft_karp(a)[2]
+                                                 for a in adjs]
 
 
 # (B, Sq, Sk, H, KV, dh, dv), causal: the JAX kernel test's five shapes,

@@ -140,8 +140,9 @@ def test_errors():
         match_bipartite_batch(adj, device="cpu")
     with pytest.raises(ValueError, match="unknown backend 'cuda'"):
         match_bipartite(adj, backend="cuda", device="cpu")
-    with pytest.raises(NotImplementedError, match="M3"):
-        match_bipartite_batch(adj[None], compact=True, device="cpu")
+    with pytest.raises(ValueError, match="unknown backend 'cuda'"):
+        match_bipartite_batch(adj[None], compact=True, backend="cuda",
+                              device="cpu")
     with pytest.raises(NotImplementedError, match="M7"):
         match_bipartite_batch(adj[None], mesh=object(), device="cpu")
 

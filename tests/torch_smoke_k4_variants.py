@@ -176,7 +176,7 @@ def in_solve(launch, names, dev, cs) -> dict:
                         w, method=method, backend="pallas", device=dev)
                     torch.cuda.synchronize()
                 weights.add(tuple(res.weight.tolist()))
-                k4 = [r for r in cs.device_events(prof)
+                k4 = [r for r in cs.device_events(prof.key_averages())
                       if "bidding_kernel" in r[2]]
                 got[name].append(sum(r[0] for r in k4) / 1e3
                                  / sum(r[1] for r in k4))
