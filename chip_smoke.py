@@ -80,9 +80,30 @@ Drives ``src/repro_torch`` only (no ``jax``, nothing of ``repro``):
    each), the instances each driver computed (the sum of
    ``CycleEvent.gathered``: bucket size x cycles for the masked one),
    the device time of the compacted driver's gathers and scatters
-   (``GATHER_SCATTER_KERNELS``) and the kernels' launches per solve;
-9. reads the launch counts of every solve of phases 3 to 8 (each set to 0
-   just before its solve and read just after) and fails if a kernel of
+   (``GATHER_SCATTER_KERNELS``) and the kernels' launches per solve.
+   Then each queue goes through device lanes (ROADMAP M7,
+   ``drive_lanes``): ``make_solver_mesh()`` must be one lane on the card,
+   and it (masked) and two lanes on the one card (masked and compacted,
+   buckets padded to the lanes with inert instances) must give the
+   masked results without lanes on every leaf (``[lanes]`` lines);
+9. drives warm starts (``phase_warm``, ROADMAP M6) on the main paths'
+   batches: the 4 x 512^2 grids of phase 3 with WARM_GRID_SHARE (1%) of
+   their arcs moved by up to +-4 and of their sink capacities by up to
+   +-2, on ``pallas`` and ``balanced``; the 8 x 512^2 weights of phase 5
+   with WARM_ASSIGN_SHARE (0.1%) of them moved by +-3, both methods on
+   ``pallas``; the 4 x 4096^2 graphs of phase 6 with WARM_MATCH_TOGGLES
+   (64) entries toggled each, on ``pallas``. Each batch is solved cold,
+   its solutions cached (``solution_of``), and the mutated batch solved
+   cold and warm (``WarmStart(solution, base_problem)``) through
+   ``solve_batch(warm=)``, ``solve_warm(compact=True)`` and a warm-seeded
+   ``RefillSolver``, and on ``pallas`` paths once more on ``xla``: every
+   warm result must equal the masked warm one bit for bit, every solve
+   the oracle (scipy, Hopcroft-Karp), and each warm kernel solve must
+   launch its path's kernels (``xla`` none of K1, K2, K4, K5). ``[warm]``
+   lines give warm and cold rounds per instance, walls and the device
+   busy of one profiled warm and cold solve each;
+10. reads the launch counts of every solve of phases 3 to 9 (each set to
+   0 just before its solve and read just after) and fails if a kernel of
    that solve was never launched, or if K4 or K5 was launched by an
    ``xla`` solve. K3 counts launches (one per call of up to 8 sweeps) and
    sweeps; each grid solve logs both, and K3's device time per launch
@@ -180,6 +201,16 @@ BATCH_ASSIGN_NS = (128, 192, 256, 320, 384, 448, 509, 512)
 BATCH_MATCH_SHAPES = ((1024, 1024), (2048, 3000), (3000, 4096),
                       (4096, 4096))
 REFILL_CAPACITY = 4
+# phase_warm: each batch of the main paths (4 x 512^2 grids, 8 x 512^2
+# assignment weights, 4 x 4096^2 graphs) solved, then mutated and solved
+# again warm from its cached solutions. Grids: WARM_GRID_SHARE of the
+# arcs moved by up to +-4 and of the sink capacities by up to +-2 (the
+# delta of the reference's warm tests, on a share of the grid); weights:
+# WARM_ASSIGN_SHARE of them moved by +-3 within [0, 100]; graphs:
+# WARM_MATCH_TOGGLES entries toggled each
+WARM_GRID_SHARE = 0.01
+WARM_ASSIGN_SHARE = 0.001
+WARM_MATCH_TOGGLES = 64
 # the kernels of the compacted driver's gathers (``index_select``) and
 # scatters (``index_copy_``), by name; the solves launch them nowhere else
 GATHER_SCATTER_KERNELS = ("indexSelect", "index_copy")
@@ -1462,6 +1493,7 @@ def phase_batch(dev, counts: dict, card: str) -> dict:
                                       "bfs_relabel_sweeps"))
             drive_balanced(bal, dev, counts, oracle)
         drive_refill(q, dev, counts, out["results"])
+        drive_lanes(q, dev, counts, out["results"])
     return summary
 
 
@@ -1483,6 +1515,224 @@ def drive_balanced(q: Queue, dev, counts: dict, oracle: list):
         log(f"[batch] {name}: {wall:.4f} s, launches {counts[name]}")
     for i, (a, b) in enumerate(zip(out["compacted"], out["masked"])):
         require_same(a, b, f"balanced compacted vs masked, request {i}")
+
+
+def drive_lanes(q: Queue, dev, counts: dict, masked: list):
+    """Device lanes on the card (ROADMAP M7): ``make_solver_mesh()`` is
+    one lane on the one card; it (masked) and two lanes on that card
+    (masked and compacted, each bucket padded to the lanes with inert
+    instances) must give ``q``'s masked results without lanes on every
+    leaf and launch the queue's kernels."""
+    from repro_torch.core.batch import solve_batch
+    from repro_torch.interop import to_numpy
+    from repro_torch.launch.mesh import make_solver_mesh
+    one = make_solver_mesh()
+    if len(one.devices) != 1 or one.devices[0].type != dev.type:
+        raise AssertionError(f"make_solver_mesh(): lanes {one.devices}, "
+                             f"not one on {dev}")
+    two = make_solver_mesh(2, device=dev)
+    for mesh, compact, label in ((one, False, "one_lane"),
+                                 (two, False, "two_lanes_masked"),
+                                 (two, True, "two_lanes_compacted")):
+        name = f"lanes_{q.kind}_{label}"
+        stats = []
+        reset_counts()
+        res, wall = solve(solve_batch, q.kind, q.payloads, bucket=q.bucket,
+                          compact=compact, mesh=mesh, stats_out=stats,
+                          device=dev, **q.kw)
+        counts[name] = read_counts()
+        require_launched(counts[name], q.kernels, name)
+        for i, r in enumerate(res):
+            require_same(to_numpy(r), masked[i], f"{name}: request {i}")
+        pads = [x.n_pad for x in stats]
+        if pads != [-x.n_real % len(mesh.devices) for x in stats]:
+            raise AssertionError(f"{name}: inert padding {pads}")
+        log(f"[lanes] {name}: {len(mesh.devices)} lane(s) on {dev}, "
+            f"buckets (requests, inert pad) "
+            f"{[(x.n_real, x.n_pad) for x in stats]}, {wall:.4f} s; equal "
+            f"to the solve without lanes")
+
+
+def warm_mutate_grid(rng, p):
+    """Move WARM_GRID_SHARE of the arcs by up to +-4 (arcs off the grid
+    stay 0) and of the sink capacities by up to +-2, at least 0."""
+    from repro_torch.core.maxflow.grid import GridProblem
+    cap = np.array(p[0], np.float32)
+    ct = np.array(p[2], np.float32)
+    hit = rng.random(cap.shape) < WARM_GRID_SHARE
+    moved = np.maximum(cap + rng.integers(-4, 5, cap.shape), 0)
+    cap = np.where(hit & (cap > 0), moved, cap).astype(np.float32)
+    hit = rng.random(ct.shape) < WARM_GRID_SHARE
+    ct = np.where(hit, np.maximum(ct + rng.integers(-2, 3, ct.shape), 0),
+                  ct).astype(np.float32)
+    return GridProblem(cap, np.asarray(p[1]), ct)
+
+
+def warm_mutate_weights(rng, w):
+    """Move WARM_ASSIGN_SHARE of the weights by +-3, within [0, 100]."""
+    hit = rng.random(w.shape) < WARM_ASSIGN_SHARE
+    step = rng.choice(np.array([-3, 3]), size=w.shape)
+    return np.where(hit, np.clip(w + step, 0, 100), w)
+
+
+def warm_mutate_adj(rng, a):
+    """Toggle WARM_MATCH_TOGGLES entries of one adjacency."""
+    a = a.copy()
+    nl, nr = a.shape
+    idx = rng.choice(nl * nr, size=WARM_MATCH_TOGGLES, replace=False)
+    a.flat[idx] ^= True
+    return a
+
+
+def drive_warm(what: str, kind: str, bases: list, mutated: list,
+               oracle: list, dev, counts: dict, kw: dict, kernels,
+               plain_kw: dict | None) -> dict:
+    """A warm re-solve of ``mutated`` from the cached solutions of
+    ``bases`` (``WarmStart(solution, base_problem)``) through the normal
+    entry points: ``solve_batch(warm=)`` (masked), ``solve_warm(compact=
+    True)``, and a ``RefillSolver`` seeded warm (``run(warm=)``), against
+    a cold ``solve_batch`` of ``mutated``. Launch counts are set to 0
+    just before each solve and read just after (``counts[f"{what}_..."]``);
+    each warm solve must launch ``kernels``. Every warm result must equal
+    the masked warm one on every leaf, converge to the oracle's value as
+    the cold solve does, and with ``plain_kw`` equal the warm solve on the
+    plain path (``backend="xla"``) bit for bit. Logs and returns the warm
+    and cold rounds and the device busy of one profiled warm and cold
+    solve each."""
+    from repro_torch.core.batch import solve_batch
+    from repro_torch.core.kinds import get_kind
+    from repro_torch.core.refill import RefillSolver
+    from repro_torch.core.warm import (WarmStart, build_warm_state,
+                                       delta_bound, solve_warm)
+    from repro_torch.interop import to_numpy
+    k = get_kind(kind)
+    rt, warm_fn = k.refill(device=dev, **kw), k.warm_state(device=dev, **kw)
+    base_res = solve_batch(kind, bases, device=dev, **kw)
+    warm = {i: WarmStart(k.solution_of(r), base_problem=bases[i])
+            for i, r in enumerate(base_res)}
+    shape = rt.shape_of(k.validate(mutated[0]))
+    runs = {
+        "cold": (solve_batch, (kind, mutated), kw),
+        "warm_masked": (solve_batch, (kind, mutated), dict(warm=warm, **kw)),
+        "warm_compacted": (solve_warm, (kind, mutated, warm),
+                           dict(compact=True, **kw)),
+        "warm_refill": (lambda: RefillSolver(
+            kind, shape=shape, capacity=len(mutated), device=dev,
+            **kw).run(mutated, warm=warm), (), {}),
+    }
+    if plain_kw is not None:
+        runs["warm_plain"] = (solve_batch, (kind, mutated),
+                              dict(warm=warm, **plain_kw))
+    out, walls = {}, {}
+    for run, (fn, a, extra) in runs.items():
+        name = f"{what}_{run}"
+        reset_counts()
+        res, walls[run] = solve(fn, *a, device=dev, **extra) if a else \
+            solve(fn)
+        counts[name] = read_counts()
+        if run == "warm_plain":
+            require_not_launched(counts[name], [
+                n for n in kernels if n != "bfs_relabel_sweeps"], name)
+        elif run != "cold":
+            require_launched(counts[name], kernels, name)
+        res = [res[i] for i in range(len(mutated))]
+        check_batch(kind, res, oracle, name)
+        out[run] = res
+        log(f"[warm] {name}: {walls[run]:.4f} s, rounds "
+            f"{[int(r.rounds) for r in res]}, launches {counts[name]}")
+    want = [to_numpy(r) for r in out["warm_masked"]]
+    for run, res in out.items():
+        if run != "cold":
+            for i, r in enumerate(res):
+                require_same(to_numpy(r), want[i], f"{what} {run} vs "
+                             f"warm_masked, request {i}")
+    # the warm init alone, as solve_warm builds it (per instance, batch-1)
+    # and inside it delta_bound's host work, outside the counted solves
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, p in enumerate(mutated):
+        v = k.validate(p)
+        build_warm_state(k, rt, warm_fn, rt.pad_one(v, shape), v, warm[i],
+                         shape)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for p, b in zip(mutated, bases):
+        delta_bound(k.validate(p), k.validate(b))
+    bound_s = time.perf_counter() - t0
+    rounds = {run: [int(r.rounds) for r in out[run]]
+              for run in ("cold", "warm_masked")}
+    prof = {run: profile(f"{what} {run}", walls[run], runs[run][0],
+                         *runs[run][1], device=dev, **runs[run][2])
+            for run in ("cold", "warm_masked")}
+    ratio_sum = sum(rounds["warm_masked"]) / sum(rounds["cold"])
+    ratio_max = max(rounds["warm_masked"]) / max(rounds["cold"])
+    log(f"[warm] {what}: rounds warm {rounds['warm_masked']} / cold "
+        f"{rounds['cold']}: sum {ratio_sum:.3f}, max {ratio_max:.3f}; "
+        f"walls warm {walls['warm_masked']:.4f} / cold {walls['cold']:.4f} "
+        f"s; device busy warm {prof['warm_masked']['busy_s']:.4f} / cold "
+        f"{prof['cold']['busy_s']:.4f} s (idle share "
+        f"{prof['warm_masked']['idle_share']:.3f} / "
+        f"{prof['cold']['idle_share']:.3f}); warm init {init_s:.4f} s "
+        f"(delta_bound {bound_s:.4f} s); every warm driver and path equal, "
+        f"oracle optima")
+    return dict(rounds=rounds, ratio_sum=ratio_sum, ratio_max=ratio_max,
+                walls=walls, busy_s={r: p["busy_s"] for r, p in prof.items()},
+                init_s=init_s, bound_s=bound_s,
+                kernels={r: p["port_kernels"] for r, p in prof.items()})
+
+
+def phase_warm(dev, counts: dict, grids: list, card: str) -> dict:
+    """Warm start on the card (ROADMAP M6), ``drive_warm`` on each main
+    path's batch: the grids (``pallas``: K1, K3; ``balanced``: K2, K3),
+    the assignment weights (auction and push-relabel on ``pallas``: K4)
+    and the graphs (``pallas``: K5), each mutated from SEED + 2."""
+    from repro_torch.core.assignment.ref import optimal_weight
+    from repro_torch.core.maxflow.grid import GridProblem
+    from repro_torch.core.matching.ref import hopcroft_karp
+    from repro_torch.core.maxflow.ref import maxflow_grid_ref
+    rng = np.random.default_rng(SEED + 2)
+    bases = [GridProblem(*p) for p in grids]
+    mutated = [warm_mutate_grid(rng, p) for p in bases]
+    oracle = [maxflow_grid_ref(*p) for p in mutated]
+    log(f"[warm] grids {len(bases)} x {bases[0].cap_src.shape}: "
+        f"{int(sum((a.cap_nbr != b.cap_nbr).sum() for a, b in zip(mutated, bases)))} "
+        f"arcs and {int(sum((a.cap_sink != b.cap_sink).sum() for a, b in zip(mutated, bases)))} "
+        f"sink capacities changed; scipy flows {oracle}")
+    out = {}
+    for backend, kernels in (
+            ("pallas", ("grid_push_decide", "bfs_relabel_sweeps")),
+            ("balanced", ("grid_push_decide_sched", "bfs_relabel_sweeps"))):
+        out[f"maxflow_{backend}"] = drive_warm(
+            f"warm_maxflow_{backend}", "maxflow", bases, mutated, oracle,
+            dev, counts, dict(backend=backend), kernels,
+            dict(backend="xla") if backend == "pallas" else None)
+    ws = list(assignment_weights())
+    mutated = [warm_mutate_weights(rng, w) for w in ws]
+    oracle = [optimal_weight(w) for w in mutated]
+    log(f"[warm] assignment {len(ws)} x {ws[0].shape}: "
+        f"{int(sum((a != b).sum() for a, b in zip(mutated, ws)))} weights "
+        f"changed; scipy optima {oracle}")
+    for method in ("auction", "pushrelabel"):
+        out[f"assignment_{method}"] = drive_warm(
+            f"warm_assignment_{method}", "assignment", ws, mutated, oracle,
+            dev, counts, dict(backend="pallas", method=method), ("bidding",),
+            dict(backend="xla", method=method))
+    adjs = list(matching_adjacency())
+    mutated = [warm_mutate_adj(rng, a) for a in adjs]
+    oracle = [hopcroft_karp(a)[2] for a in mutated]
+    log(f"[warm] matching {len(adjs)} x {adjs[0].shape}: "
+        f"{WARM_MATCH_TOGGLES} entries toggled each; Hopcroft-Karp "
+        f"{oracle}")
+    out["matching"] = drive_warm(
+        "warm_matching", "matching", adjs, mutated, oracle, dev, counts,
+        dict(backend="pallas"), ("frontier",), dict(backend="xla"))
+    for name, r in out.items():
+        log(f"[warm] {name} on {card}: warm / cold rounds, sum "
+            f"{r['ratio_sum']:.3f}, max {r['ratio_max']:.3f}; device busy "
+            f"{r['busy_s']['warm_masked']:.4f} / {r['busy_s']['cold']:.4f} "
+            f"s")
+    return out
 
 
 def serve_prompts(vocab: int, B: int = SERVE_B, S: int = SERVE_S,
@@ -1680,6 +1930,9 @@ def main() -> int:
     t_batch = time.perf_counter()
     batch = phase_batch(dev, counts, card)
     log(f"[batch] done in {time.perf_counter() - t_batch:.1f} s: {batch}")
+    t_warm = time.perf_counter()
+    phase_warm(dev, counts, problems, card)
+    log(f"[warm] done in {time.perf_counter() - t_warm:.1f} s")
     serve = phase_serve(dev, counts)
     k6 = serve["prefill"]["port_kernels"]
     kernels["flash_attention_fwd"]["prefill_ms_per_launch"] = (

@@ -23,11 +23,12 @@
 * ``PreparedBucket`` / ``BucketStats``: the host-stage hand-off and the
   per-solve occupancy/round-spread record (``stats_out=``).
 
-The batched entry points take ``compact=`` (early-exit compaction) and
-``device=`` (the card unless ``"cpu"``). ``mesh=`` raises
-``NotImplementedError`` until device lanes are ported (ROADMAP M7), as
-does ``warm=`` until warm start is (M6). ``repro_torch.core.refill``
-holds the continuous-batching session ``RefillSolver``.
+The batched entry points take ``compact=`` (early-exit compaction),
+``device=`` (the card unless ``"cpu"``) and ``mesh=`` (device lanes,
+``repro_torch.launch.mesh``); ``solve_batch`` also takes ``warm=``
+(``repro_torch.core.warm``: warm starts, graph deltas and the solution
+cache). ``repro_torch.core.refill`` holds the continuous-batching
+session ``RefillSolver``.
 """
 from repro_torch.core.assignment.cost_scaling import (AssignmentResult,
                                                       solve_assignment)

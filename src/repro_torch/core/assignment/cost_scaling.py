@@ -286,24 +286,55 @@ def _ceil_div(a, b: int):
     return -_floordiv(-a, b)
 
 
+def _scaled(w, alpha: int):
+    """Scaled minimization costs ``c = -(n+1) w`` and the cold first ε,
+    ``ceil(max|c| / alpha)`` per instance. ``w`` is an int32 tensor."""
+    n = w.shape[-1]
+    c = -(n + 1) * w                                        # minimization form
+    C = torch.clamp(torch.amax(torch.abs(c), dim=(-2, -1)), min=1)
+    return c, torch.clamp(_ceil_div(C, alpha), min=1)       # ceil(C/alpha)
+
+
+def _enter(c, eps0, p_y) -> _ScaleState:
+    """The flat state entering its first refine at ``eps0`` with column
+    prices ``p_y`` (Alg. 5.0 start)."""
+    n = c.shape[-1]
+    batch = tuple(c.shape[:-2])
+    zeros = lambda shape, dt=_I32: torch.zeros(shape, dtype=dt,  # noqa: E731
+                                               device=c.device)
+    st = _RefineState(
+        F=zeros(batch + (n, n)), p_x=zeros(batch + (n,)), p_y=p_y,
+        fixed=zeros(batch + (n, n), torch.bool), rounds=zeros(batch),
+        pushes=zeros(batch), relabels=zeros(batch))
+    return _ScaleState(c=c, eps=eps0, k=zeros(batch),
+                       alive=torch.ones(batch, dtype=torch.bool,
+                                        device=c.device),
+                       st=_refine_init(c, eps0, st))
+
+
 def _scale_init(w, *, alpha: int) -> _ScaleState:
     """Initial flat state: per-instance ε = ceil(max|c| / alpha), first
     refine entered (Alg. 5.0 start). ``w`` is an int32 tensor."""
-    n = w.shape[-1]
-    batch = tuple(w.shape[:-2])
-    dev = w.device
-    c = -(n + 1) * w                                        # minimization form
-    C = torch.clamp(torch.amax(torch.abs(c), dim=(-2, -1)), min=1)
-    eps0 = torch.clamp(_ceil_div(C, alpha), min=1)          # ceil(C/alpha)
-    zeros = lambda shape, dt=_I32: torch.zeros(shape, dtype=dt,  # noqa: E731
-                                               device=dev)
-    st = _RefineState(
-        F=zeros(batch + (n, n)), p_x=zeros(batch + (n,)),
-        p_y=zeros(batch + (n,)), fixed=zeros(batch + (n, n), torch.bool),
-        rounds=zeros(batch), pushes=zeros(batch), relabels=zeros(batch))
-    return _ScaleState(c=c, eps=eps0, k=zeros(batch),
-                       alive=torch.ones(batch, dtype=torch.bool, device=dev),
-                       st=_refine_init(c, eps0, st))
+    c, eps0 = _scaled(w, alpha)
+    return _enter(c, eps0, torch.zeros(tuple(w.shape[:-1]), dtype=_I32,
+                                       device=w.device))
+
+
+def _scale_warm(w, p_y, dmax, *, alpha: int) -> _ScaleState:
+    """Warm flat state: re-enter the ε ladder at a delta-bounded rung with
+    the prior column prices (reference ``_scale_warm``).
+
+    ``_refine_init`` makes the empty flow EXACTLY ε-optimal for ANY
+    ``p_y``, so warm correctness is unconditional: the ladder still ends
+    at ε = 1. The prior prices only change how much work is left: prices
+    1-optimal for the base costs are ``(1 + D)``-optimal for the mutated
+    ones, ``D = max |Δc|`` in scaled units, so the ladder starts at
+    ``clip(1 + D, 1, ε_cold)``. ``w`` is an int32 tensor, ``p_y`` and
+    ``dmax`` (per-instance ``D``, at most ``2 ** 30``) int32 tensors.
+    """
+    c, eps_cold = _scaled(w, alpha)
+    eps0 = torch.minimum(torch.clamp(1 + dmax.to(_I32), min=1), eps_cold)
+    return _enter(c, eps0, p_y.to(_I32))
 
 
 @functools.lru_cache(maxsize=None)
@@ -428,8 +459,12 @@ def solve_assignment(
         batched ``(B, n, n)`` weights only): instances whose ε schedule
         finished leave the working set between cycles instead of being
         select-masked until the batch drains; equal results.
-      mesh / mesh_axis: device lanes are not ported yet (ROADMAP item M7)
-        and raise ``NotImplementedError``.
+      mesh / mesh_axis: optional lane set
+        (``repro_torch.launch.mesh.make_solver_mesh``; batched ``w``
+        only): each lane solves a contiguous slice of the batch on its
+        device, padded with zero (inert) instances where the batch does
+        not divide; with ``compact=True`` compaction stays within each
+        lane. Equal results, returned on ``device``.
       device: where to solve; ``None`` means ``"cuda"`` (raises without a
         card), ``"cpu"`` runs K4's plain version.
 
@@ -452,18 +487,36 @@ def solve_assignment(
             f"compact=True needs batched (B, n, n) weights, got shape "
             f"{tuple(w.shape)}; compaction drops converged instances from "
             f"a batch axis")
-    if mesh is not None or mesh_axis is not None:
-        raise NotImplementedError(
-            "mesh= (device lanes) is not ported yet: ROADMAP item M7")
     if w.ndim not in (2, 3) or w.shape[-1] != w.shape[-2]:
         raise ValueError(f"w must be (n, n) or (B, n, n), got "
                          f"{tuple(w.shape)}")
     w_i = _load_weights(w, resolve_device(device))
+    kw = dict(method=method, alpha=alpha, max_rounds=max_rounds,
+              rounds_per_heuristic=rounds_per_heuristic,
+              use_price_update=use_price_update,
+              use_arc_fixing=use_arc_fixing, backend=backend)
+    if mesh is None:
+        return _solve_assignment_impl(w_i, compact=compact, **kw)
+    if w.ndim != 3:
+        raise ValueError(
+            f"mesh-sharded solve_assignment needs batched (B, n, n) weights, "
+            f"got shape {tuple(w.shape)}")
+    from repro_torch.launch.mesh import dispatch_sharded
+    return dispatch_sharded(_solve_assignment_impl, (w_i,), w.shape[0], mesh,
+                            mesh_axis, compact=compact, **kw)
+
+
+def _solve_assignment_impl(w_i, *, method, alpha, max_rounds,
+                           rounds_per_heuristic, use_price_update,
+                           use_arc_fixing, backend, compact=False,
+                           lanes=None) -> AssignmentResult:
+    """The solve on int32 weights already on the device, rank-polymorphic;
+    ``compact`` (batched) drives ``run_compacted`` over ``lanes``."""
     state = _scale_init(w_i, alpha=alpha)
     spec = _assignment_spec(method, alpha, max_rounds, rounds_per_heuristic,
                             use_price_update, use_arc_fixing, backend)
     if compact:
-        state, _ = run_compacted(spec, state, w.shape[0])
+        state, _ = run_compacted(spec, state, w_i.shape[0], lanes=lanes)
     else:
         state, _ = run_masked(spec, state, tuple(state.eps.shape))
     return _assignment_finalize(w_i, state.st)

@@ -26,14 +26,24 @@ Two-stage split: each front end is a HOST stage, ``prepare_buckets``
 one batched solve, then cropping), which also returns a ``BucketStats``
 record (occupancy, per-instance round spread, convergence counts).
 
+Lanes (``mesh=``): pass a lane set
+(``repro_torch.launch.mesh.make_solver_mesh``) and each bucket's batch
+splits into contiguous slices, one per lane, each solved on its lane's
+device. Buckets whose size is not a multiple of the lane count are padded
+with INERT instances (each kind's ``inert_problem``), dropped before
+returning; results equal the solve without lanes.
+
+Warm starts (``warm=``): ``{payload_position: WarmStart}`` routes the
+queue through ``repro_torch.core.warm.solve_warm``, which mixes warm and
+cold instances in the same buckets.
+
 This module REGISTERS the paper's two kinds (``"maxflow"`` and
-``"assignment"``) with the registry at the bottom of the file; the third,
-``"matching"``, registers itself in ``repro_torch.core.matching``.
+``"assignment"``) with the registry at the bottom of the file, warm-start
+hooks included; the third, ``"matching"``, registers itself in
+``repro_torch.core.matching``.
 
 ``device=`` travels with the other solver knobs (``**solver_kw``) to the
-solvers and the refill runtimes; it defaults to the card. Not ported yet,
-and raising ``NotImplementedError``: ``mesh=`` (device lanes, ROADMAP M7)
-and ``warm=`` (warm start, ROADMAP M6).
+solvers and the refill runtimes; it defaults to the card.
 """
 from __future__ import annotations
 
@@ -76,12 +86,12 @@ def _bucket_shape(shape: tuple, mode: str, max_shape: tuple) -> tuple:
 
 
 def _shard_pad(n_real: int, mesh, mesh_axis) -> int:
-    """Inert instances to append so a bucket splits evenly across device
-    lanes: 0 without a mesh; lanes are ROADMAP item M7."""
-    if mesh is not None or mesh_axis is not None:
-        raise NotImplementedError(
-            "mesh= (device lanes) is not ported yet: ROADMAP item M7")
-    return 0
+    """Inert instances to append so the bucket splits evenly across the
+    lanes of ``mesh``."""
+    if mesh is None:
+        return 0
+    from repro_torch.launch.mesh import shard_count
+    return -n_real % shard_count(mesh, mesh_axis)
 
 
 def _host(a) -> np.ndarray:
@@ -101,7 +111,9 @@ class PreparedBucket(NamedTuple):
     problem (numpy leaves); ``originals`` holds raw per-request payloads
     when a kind's device stage needs unpadded values (the assignment kind
     recomputes weights on them) and is ``None`` otherwise. ``n_pad``
-    counts trailing inert instances (0 until device lanes, M7).
+    counts trailing inert instances appended so the batch divides into
+    the lanes: the stacked batch is ``len(idxs) + n_pad`` instances,
+    reals first.
     """
 
     kind: str                    # a registered solver kind name
@@ -234,12 +246,15 @@ def solve_batch(
       payloads: the kind's problem instances (any mix of shapes).
       bucket: ``"max"`` | ``"pow2"`` | ``"exact"`` (module docstring).
       compact: early-exit compaction per bucket (equal results).
-      mesh / mesh_axis: device lanes, ROADMAP M7: raise
-        ``NotImplementedError``.
+      mesh / mesh_axis: optional lane set: each bucket's batch splits
+        across it, padded with the kind's inert instances so every bucket
+        divides (dropped before returning).
       stats_out: optional list; one ``BucketStats`` per bucket is
         appended.
-      warm: warm start, ROADMAP M6: a non-empty dict raises
-        ``NotImplementedError``.
+      warm: optional ``{payload_position: WarmStart}``: those instances
+        start from their cached prior solutions through the kind's
+        ``warm_state`` hook, in the same buckets as the cold ones
+        (``repro_torch.core.warm.solve_warm`` drives the solve).
       **solver_kw: forwarded to the kind's solver (``backend=``,
         ``max_rounds=``, ``device=``, ...).
     """
@@ -248,9 +263,10 @@ def solve_batch(
     if not payloads:
         return []
     if warm:
-        raise NotImplementedError(
-            "solve_batch(warm=) (warm start) is not ported yet: ROADMAP "
-            "item M6")
+        from repro_torch.core.warm import solve_warm
+        return solve_warm(kind, payloads, warm, bucket=bucket,
+                          compact=compact, mesh=mesh, mesh_axis=mesh_axis,
+                          stats_out=stats_out, **solver_kw)
     results: list = [None] * len(payloads)
     for prep in k.prepare_buckets(payloads, bucket=bucket, mesh=mesh,
                                   mesh_axis=mesh_axis):
@@ -667,6 +683,108 @@ def _assignment_loop_spec(*, method: str = "auction", alpha: int = 10,
                             use_price_update, use_arc_fixing, backend)
 
 
+# ------------------------------------------------------ warm-start hooks
+# (repro_torch.core.warm drives these)
+
+
+def _pad_trailing(a, shape, fill=0) -> torch.Tensor:
+    """Pad the trailing ``len(shape)`` axes of ``a`` (a tensor or array)
+    up to ``shape`` with ``fill``; the dtype is kept."""
+    a = a if isinstance(a, torch.Tensor) else torch.from_numpy(
+        np.array(a, copy=True))
+    tail = a.shape[a.dim() - len(shape):]
+    pads = []
+    for s, t in reversed(list(zip(tail, shape))):
+        pads += [0, t - s]
+    return torch.nn.functional.pad(a, pads, value=fill) if any(pads) else a
+
+
+def _maxflow_init_state(**solver_kw):
+    """Cold per-instance init for the ``"maxflow"`` kind: the refill
+    runtime's init, so warm/cold mixing shares one code path."""
+    return _maxflow_refill(**solver_kw).init
+
+
+def _maxflow_warm_state(*, rounds_per_heuristic: int = 32,
+                        max_rounds: int = 100_000, bfs_max_iters: int = 0,
+                        backend: str = "xla", stall_threshold: float = 0.05,
+                        device=None):
+    """Warm per-instance init: recover the prior flow from the cached
+    residuals, clamp and repair it against the mutated capacities and
+    re-BFS the heights (``repro_torch.core.maxflow.grid._grid_warm``).
+    Without a base problem the prior flow is unrecoverable from residuals
+    alone, so the hook falls back to the cold init."""
+    from repro_torch.core.maxflow.grid import _grid_init, _grid_warm, _load
+    dev = resolve_device(device)
+
+    def warm1(problem1: GridProblem, solution, *, base_problem1=None,
+              delta_bound=None):
+        cap = torch.movedim(_load(problem1.cap_nbr, dev), 1, 0)
+        cs = _load(problem1.cap_src, dev)
+        ct = _load(problem1.cap_sink, dev)
+        if base_problem1 is None:
+            return _grid_init(cap, cs, ct, bfs_max_iters=bfs_max_iters)
+        H, W = cs.shape[-2:]
+        bcap = torch.movedim(_load(base_problem1.cap_nbr, dev), 1, 0)
+        bct = _load(base_problem1.cap_sink, dev)
+        # cached solution arrays are at the ORIGINAL (h, w); inert padding
+        # carries no flow, so zero-extending them to the bucket is exact
+        pcap = _pad_trailing(solution["cap"], (H, W))[:, None].to(dev)
+        pct = _pad_trailing(solution["cap_sink"], (H, W))[None].to(dev)
+        return _grid_warm(cap, cs, ct, bcap, bct, pcap, pct,
+                          bfs_max_iters=bfs_max_iters)
+
+    return warm1
+
+
+def _maxflow_solution_of(res: GridFlowResult):
+    """Cacheable artifact: the residual capacities (grid + sink edges);
+    with the base problem they reconstruct the full prior flow."""
+    return {"cap": res.state.cap, "cap_sink": res.state.cap_sink}
+
+
+def _assignment_init_state(**solver_kw):
+    return _assignment_refill(**solver_kw).init
+
+
+def _assignment_warm_state(*, method: str = "auction", alpha: int = 10,
+                           max_rounds: int = 200_000,
+                           rounds_per_heuristic: int = 16,
+                           use_price_update: bool = True,
+                           use_arc_fixing: bool = True,
+                           backend: str = "xla", device=None):
+    """Warm per-instance init: re-enter the ε ladder at a delta-bounded
+    rung with the prior column prices (``_scale_warm``, correct for ANY
+    prices). ``delta_bound`` (max |Δw| on the original weights) becomes a
+    scaled-cost bound of ``(m+1)·2·ceil(Δw)``, capped at ``2 ** 30`` (the
+    factor 2 covers the bonus shift drifting with ``min(w)``); with no
+    bound the ladder re-enters at the cold rung and only the prices carry
+    over."""
+    from repro_torch.core.assignment.cost_scaling import (_load_weights,
+                                                          _scale_warm)
+    dev = resolve_device(device)
+
+    def warm1(stacked1, solution, *, base_problem1=None, delta_bound=None):
+        w = _load_weights(stacked1, dev)
+        m = int(w.shape[-1])
+        p_y = _pad_trailing(solution["p_y"], (m,)).to(
+            device=dev, dtype=torch.int32)[None]
+        if delta_bound is None:
+            d = 2 ** 30                                  # clamps to cold ε
+        else:
+            d = min(2 ** 30, (m + 1) * 2 * int(np.ceil(delta_bound)))
+        dmax = torch.full((1,), d, dtype=torch.int32, device=dev)
+        return _scale_warm(w, p_y, dmax, alpha=alpha)
+
+    return warm1
+
+
+def _assignment_solution_of(res: AssignmentResult):
+    """Cacheable artifact: the column prices (the dual half the warm
+    ladder reuses)."""
+    return {"p_y": res.p_y}
+
+
 register_kind(SolverKind(
     name="maxflow",
     validate=validate_grid_problem,
@@ -675,6 +793,9 @@ register_kind(SolverKind(
     solve_prepared=solve_prepared_maxflow,
     loop_spec=_maxflow_loop_spec,
     refill=_maxflow_refill,
+    init_state=_maxflow_init_state,
+    warm_state=_maxflow_warm_state,
+    solution_of=_maxflow_solution_of,
 ))
 
 register_kind(SolverKind(
@@ -685,4 +806,7 @@ register_kind(SolverKind(
     solve_prepared=solve_prepared_assignment,
     loop_spec=_assignment_loop_spec,
     refill=_assignment_refill,
+    init_state=_assignment_init_state,
+    warm_state=_assignment_warm_state,
+    solution_of=_assignment_solution_of,
 ))

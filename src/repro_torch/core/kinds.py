@@ -31,8 +31,8 @@ A ``SolverKind`` bundles:
 
 Three further OPTIONAL hooks form the warm-start seam of the reference
 (``repro/core/warm.py``): ``init_state``, ``warm_state`` and
-``solution_of``. Warm start is ROADMAP item M6; until it is ported every
-kind of the port leaves them ``None``.
+``solution_of``; ``repro_torch.core.warm`` drives them, and every
+built-in kind registers all three.
 
 The built-in kinds register themselves when their home modules import;
 ``get_kind`` / ``registered_kinds`` lazily import those modules so lookups
@@ -58,7 +58,7 @@ class SolverKind(NamedTuple):
     # optional: the kind's continuous-batching runtime factory
     # (repro_torch.core.refill.RefillRuntime); None = closed-batch only
     refill: Callable[..., Any] | None = None
-    # optional warm-start seam (ROADMAP M6); None = cold-only kind.
+    # optional warm-start seam (repro_torch.core.warm); None = cold-only.
     # init_state / warm_state are factories over the kind's static solver
     # knobs returning per-instance (batch-1) state builders; solution_of
     # maps one cropped result to its cacheable artifact.

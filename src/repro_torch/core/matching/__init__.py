@@ -5,14 +5,14 @@ solver (``repro_torch.core.matching.bfs``, lock-free BFS augmenting-path
 phases after Deveci et al., arXiv:1303.1379) and the Hopcroft–Karp
 oracle, and REGISTERS the ``"matching"`` kind: the validate, pad, inert
 and bucket stages, the device stage ``solve_prepared_matching``, and the
-loop-spec and refill factories, so the ragged front end
-(``repro_torch.core.batch.solve_batch``), early-exit compaction and
-refill sessions serve matching with no change to those layers.
+loop-spec and refill factories and the warm-start hooks, so the ragged
+front end (``repro_torch.core.batch.solve_batch``), early-exit
+compaction, refill sessions and warm starts serve matching with no change
+to those layers.
 
 This package has a real ``__init__`` on purpose: importing
 ``repro_torch.core.matching`` is what registers the kind, and the
-registry's lazy builtin import relies on that side effect. The warm-start
-hooks of the reference's kind are ROADMAP item M6 and stay ``None``.
+registry's lazy builtin import relies on that side effect.
 
 Payload forms accepted by the validator (both canonicalize to a dense
 ``(nl, nr)`` bool numpy adjacency):
@@ -27,6 +27,7 @@ from __future__ import annotations
 from typing import Iterable
 
 import numpy as np
+import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.batch import (BucketStats, PreparedBucket,
@@ -220,6 +221,37 @@ def _matching_refill(*, max_rounds: int = 10_000, greedy_init: bool = True,
                          finalize=finalize, crop=crop, shape_of=shape_of)
 
 
+def _matching_init_state(**solver_kw):
+    """Cold per-instance init: the refill runtime's init, registered on
+    the warm seam so mixed warm/cold batches share one code path."""
+    return _matching_refill(**solver_kw).init
+
+
+def _matching_warm_state(*, max_rounds: int = 10_000,
+                         greedy_init: bool = True, backend: str = "xla",
+                         device=None):
+    """Warm per-instance init: seed the state with the prior matched pairs
+    that survive the mutated adjacency and let the augmenting phases
+    restore maximality (``repro_torch.core.matching.bfs._match_warm``)."""
+    from repro_torch.core.batch import _pad_trailing
+    from repro_torch.core.matching.bfs import _load_adj, _match_warm
+    dev = resolve_device(device)
+
+    def warm1(stacked1, solution, *, base_problem1=None, delta_bound=None):
+        adj = _load_adj(stacked1, dev)
+        mr = _pad_trailing(solution["match_row"], (adj.shape[-2],),
+                           fill=-1).to(device=dev, dtype=torch.int32)[None]
+        return _match_warm(adj, mr, greedy_init=greedy_init)
+
+    return warm1
+
+
+def _matching_solution_of(res: MatchingResult):
+    """Cacheable artifact: the matched forest's row side (the column side
+    is rebuilt from it at warm time)."""
+    return {"match_row": res.match_row}
+
+
 register_kind(SolverKind(
     name="matching",
     validate=validate_matching_problem,
@@ -228,4 +260,7 @@ register_kind(SolverKind(
     solve_prepared=solve_prepared_matching,
     loop_spec=_matching_loop_spec,
     refill=_matching_refill,
+    init_state=_matching_init_state,
+    warm_state=_matching_warm_state,
+    solution_of=_matching_solution_of,
 ))

@@ -204,6 +204,38 @@ def _match_init(adj, *, greedy_init: bool) -> MatchState:
                       progress=_has_free_work(adj, mr))
 
 
+def _match_warm(adj, mr_prior, *, greedy_init: bool) -> MatchState:
+    """Warm state: keep the prior matched pairs that survive the new
+    adjacency; the unchanged augmenting phases restore maximality
+    (reference ``_match_warm``).
+
+    Any valid matching is a sound starting forest (Berge), and maximum
+    cardinality is unique, so a warm solve lands on the cold optimum. A
+    pair survives only if its edge still exists; the column side is
+    rebuilt from the row side (ties keep the minimum row, a keyed
+    ``amin`` scatter in place of the reference's dense masked min) and
+    rows that lost the tie are scrubbed, so even a stale or foreign seed
+    degrades to a smaller but valid matching. ``greedy_init`` extends the
+    seed with the greedy pass (it only pairs free rows with free columns).
+    """
+    *_, nl, nr = adj.shape
+    rows_i = torch.arange(nl, dtype=_I32, device=adj.device)
+    mr = mr_prior.to(_I32)
+    in_range = (mr >= 0) & (mr < nr)
+    edge = _gather(adj, torch.clamp(mr, 0, nr - 1).unsqueeze(-1)) \
+        .squeeze(-1)
+    mr = torch.where(in_range & edge, mr, -1)
+    # column side from the row side: the minimum row claiming each column
+    mc = _scatter_min(nr, mr, rows_i.expand_as(mr), mr >= 0)
+    mc = torch.where(mc < INF, mc, -1)
+    back = _gather(mc, torch.clamp_min(mr, 0))
+    mr = torch.where((mr >= 0) & (back == rows_i), mr, -1)
+    if greedy_init:
+        mr, mc = _greedy_match(adj, mr, mc)
+    return MatchState(adj=adj, match_row=mr, match_col=mc,
+                      progress=_has_free_work(adj, mr))
+
+
 def _match_finalize(state: MatchState, rounds) -> MatchingResult:
     """Result view: ``converged`` is the Berge certificate — the last phase
     found no augmenting path (False only when ``max_rounds`` was hit)."""
@@ -220,15 +252,17 @@ def _check_backend(backend: str) -> None:
 
 
 def _solve_match(adj, *, max_rounds, greedy_init, backend,
-                 compact=False) -> MatchingResult:
+                 compact=False, lanes=None) -> MatchingResult:
     """Shared solver loop, rank-polymorphic over leading batch axes;
     ``compact`` (one batch axis): early-exit compaction, an instance whose
-    maximality is certified leaves the working set between phases."""
+    maximality is certified leaves the working set between phases, within
+    ``run_compacted``'s ``lanes``."""
     _check_backend(backend)
     state = _match_init(adj, greedy_init=greedy_init)
     spec = _matching_spec(max_rounds, backend)
     if compact:
-        state, rounds = run_compacted(spec, state, adj.shape[0])
+        state, rounds = run_compacted(spec, state, adj.shape[0],
+                                      lanes=lanes)
     else:
         state, rounds = run_masked(spec, state, tuple(adj.shape[:-2]))
     return _match_finalize(state, rounds)
@@ -300,8 +334,12 @@ def match_bipartite_batch(
       compact: early-exit compaction (``repro_torch.core.solver_loop``):
         an instance whose maximality is certified leaves the working set
         between phases; equal results.
-      mesh / mesh_axis: device lanes are not ported yet (ROADMAP item M7)
-        and raise ``NotImplementedError``.
+      mesh / mesh_axis: optional lane set
+        (``repro_torch.launch.mesh.make_solver_mesh``): each lane solves a
+        contiguous slice of the batch on its device, padded with edgeless
+        (inert) instances where the batch does not divide; with
+        ``compact=True`` compaction stays within each lane. Equal results,
+        returned on ``device``.
 
     Returns ``MatchingResult`` with every leaf leading with the batch axis;
     it equals a loop of single solves leaf for leaf.
@@ -310,9 +348,11 @@ def match_bipartite_batch(
         raise ValueError(
             f"match_bipartite_batch expects adj (B, nl, nr), got "
             f"{tuple(adj.shape)}; use match_bipartite for a single instance")
-    if mesh is not None or mesh_axis is not None:
-        raise NotImplementedError(
-            "mesh= (device lanes) is not ported yet: ROADMAP item M7")
-    return _solve_match(_load_adj(adj, resolve_device(device)),
-                        max_rounds=max_rounds, greedy_init=greedy_init,
-                        backend=backend, compact=compact)
+    kw = dict(max_rounds=max_rounds, greedy_init=greedy_init,
+              backend=backend)
+    a = _load_adj(adj, resolve_device(device))
+    if mesh is None:
+        return _solve_match(a, compact=compact, **kw)
+    from repro_torch.launch.mesh import dispatch_sharded
+    return dispatch_sharded(_solve_match, (a,), adj.shape[0], mesh,
+                            mesh_axis, compact=compact, **kw)

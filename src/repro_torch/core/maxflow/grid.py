@@ -357,23 +357,122 @@ def _grid_finalize(state: GridFlowState, rounds, *,
 
 def _solve_grid(cap0, cs0, ct0, *, rounds_per_heuristic, max_rounds,
                 bfs_max_iters, backend, stall_threshold=0.05,
-                compact=False) -> GridFlowResult:
+                compact=False, lanes=None) -> GridFlowResult:
     """Shared solve, rank-polymorphic over leading batch axes.
 
     ``cs0``/``ct0`` are ``(..., H, W)`` with ``cap0`` ``(4, ..., H, W)``.
     ``compact`` (one batch axis): ``run_compacted`` gathers the still-live
     instances into dense pow2-sized sub-batches between cycles, so a
     converged instance stops costing device time instead of being
-    select-masked until the whole batch drains; equal results.
+    select-masked until the whole batch drains; equal results. ``lanes``
+    (compacted only): ``run_compacted``'s per-lane slices.
     """
     spec = _grid_spec(rounds_per_heuristic, max_rounds, bfs_max_iters,
                       backend, stall_threshold)
     state = _grid_init(cap0, cs0, ct0, bfs_max_iters=bfs_max_iters)
     if compact:
-        state, rounds = run_compacted(spec, state, cs0.shape[0])
+        state, rounds = run_compacted(spec, state, cs0.shape[0],
+                                      lanes=lanes)
     else:
         state, rounds = run_masked(spec, state, tuple(cs0.shape[:-2]))
     return _grid_finalize(state, rounds, bfs_max_iters=bfs_max_iters)
+
+
+def _grid_batch_impl(cap0, cs0, ct0, **kw) -> GridFlowResult:
+    """``_solve_grid`` in the public batched layout (``cap0`` and the
+    result's ``state.cap`` ``(B, 4, H, W)``): the per-lane function of the
+    ``mesh=`` path, every leaf batch-leading."""
+    res = _solve_grid(torch.movedim(cap0, 1, 0), cs0, ct0, **kw)
+    return res._replace(state=res.state._replace(
+        cap=torch.movedim(res.state.cap, 0, 1).contiguous()))
+
+
+def _grid_warm(cap0, cs0, ct0, base_cap, base_ct, prior_cap, prior_ct,
+               *, bfs_max_iters: int) -> GridFlowState:
+    """Warm restart: clamp the prior flow to the new capacities, repair
+    conservation deficits, re-BFS the heights (reference ``_grid_warm``).
+
+    Internal layout throughout (``cap*`` ``(4, ..., H, W)``, the rest
+    ``(..., H, W)``), float32 tensors on the solve's device. ``base_*``
+    are the capacities the prior solve ran against; the prior NET flow per
+    grid arc is ``base_cap - prior_cap`` and per sink edge ``base_ct -
+    prior_ct``. The heights are exact BFS distances on the repaired
+    residual graph from a zero ``h_prev`` (a uniform ``N`` on the
+    unreachable region), so no residual edge violates them and K3 sees
+    seeds and planes in [1, INF] only.
+
+    Repair: clamping to shrunken capacities can leave nodes with negative
+    excess. A Jacobi fixpoint loop lets every deficit node cut its own
+    outgoing flow (sink edge first, then the grid directions) until
+    conservation holds with ``e >= 0`` everywhere; flows only decrease, so
+    it terminates. It is a host loop on the batch-wide predicate (one sync
+    per iteration, at most ``4·H·W + 8`` iterations); an iteration on a
+    repaired instance is a no-op. An instance still in deficit at the cap
+    falls back to its cold init.
+    """
+    *b, H, W = cs0.shape
+    n_nodes = H * W + 2
+    bfs_iters = bfs_max_iters or n_nodes
+    f32 = torch.float32
+    capn, csn, ctn = cap0.to(f32), cs0.to(f32), ct0.to(f32)
+
+    # prior positive flow per arc, clamped to the new capacities
+    f = base_cap.to(f32) - prior_cap.to(f32)
+    phi = torch.minimum(torch.clamp_min(f, 0.0), capn)
+    fs = torch.minimum(torch.clamp_min(base_ct.to(f32) - prior_ct.to(f32),
+                                       0.0), ctn)
+
+    def excess(phi, fs):
+        # source saturates (cold-init convention): inflow from s is csn
+        inflow = sum(_move(phi[d], d) for d in range(4))
+        return csn + inflow - phi.sum(0) - fs
+
+    e, it = excess(phi, fs), 0
+    while it < 4 * H * W + 8 and bool((e < 0).any()):
+        deficit = torch.clamp_min(-e, 0.0)
+        r = torch.minimum(deficit, fs)
+        fs = fs - r
+        deficit = deficit - r
+        rows = []
+        for d in range(4):
+            r = torch.minimum(deficit, phi[d])
+            rows.append(phi[d] - r)
+            deficit = deficit - r
+        phi = torch.stack(rows, 0)
+        e, it = excess(phi, fs), it + 1
+
+    resid = torch.stack(
+        [capn[d] - phi[d] + _move(phi[_OPP[d]], _OPP[d]) for d in range(4)],
+        0)
+    cap_sink = ctn - fs
+    dev = cs0.device
+    warm = GridFlowState(
+        e=torch.clamp_min(e, 0.0),
+        h=bfs_heights(resid, cap_sink,
+                      torch.zeros(csn.shape, dtype=torch.int32, device=dev),
+                      n_nodes, bfs_iters),
+        cap=resid,
+        cap_src=csn.clone(),               # residual x -> s after saturation
+        cap_sink=cap_sink,
+        sink_flow=_gsum(fs),
+        src_flow=torch.zeros(tuple(b), dtype=f32, device=dev),
+        heur=torch.zeros(tuple(b), dtype=torch.int32, device=dev),
+    )
+    bad = _any_hw(e < 0)                   # per-instance repair failure
+    if not bool(bad.any()):
+        return warm
+    cold = _grid_init(cap0, cs0, ct0, bfs_max_iters=bfs_max_iters)
+
+    def pick(w, c):
+        extra = w.dim() - bad.dim()        # trailing (H, W) / leading (4,)
+        mask = bad
+        if w.dim() - len(b) == 3:          # cap leaf: leading direction axis
+            mask = bad[None]
+            extra -= 1
+        return torch.where(mask.reshape(tuple(mask.shape) + (1,) * extra),
+                           c, w)
+
+    return GridFlowState(*(pick(w, c) for w, c in zip(warm, cold)))
 
 
 def _load(x, device: torch.device) -> torch.Tensor:
@@ -460,8 +559,14 @@ def maxflow_grid_batch(
         between cycles the host gathers the still-live instances into a
         dense pow2-sized sub-batch, so a converged instance stops costing
         device time. Worth it when convergence is ragged; equal results.
-      mesh / mesh_axis: device lanes are not ported yet (ROADMAP item M7)
-        and raise ``NotImplementedError``.
+      mesh: optional lane set (``repro_torch.launch.mesh.make_solver_mesh``):
+        the batch splits into contiguous slices, one per lane, each solved
+        on its lane's device with no communication; a batch that does not
+        divide into the lanes is padded with zero (inert) instances,
+        dropped from the result. With ``compact=True`` compaction stays
+        within each lane (``compact_lanes``). Results come back on
+        ``device`` and equal the solve without a mesh.
+      mesh_axis: the lane set's axis (default: its first).
 
     Returns:
       ``GridFlowResult`` whose leaves lead with the batch axis:
@@ -480,17 +585,15 @@ def maxflow_grid_batch(
         raise ValueError(
             f"shapes do not match: cap_nbr {tuple(cap0.shape)}, cap_src "
             f"{tuple(cs0.shape)}, cap_sink {tuple(ct0.shape)}")
-    if mesh is not None or mesh_axis is not None:
-        raise NotImplementedError(
-            "mesh= (device lanes) is not ported yet: ROADMAP item M7")
     _round_fn(backend)
     dev = resolve_device(device)
-    res = _solve_grid(torch.movedim(_load(cap0, dev), 1, 0),
-                      _load(cs0, dev), _load(ct0, dev),
-                      rounds_per_heuristic=rounds_per_heuristic,
-                      max_rounds=max_rounds, bfs_max_iters=bfs_max_iters,
-                      backend=backend, stall_threshold=stall_threshold,
-                      compact=compact)
+    args = (_load(cap0, dev), _load(cs0, dev), _load(ct0, dev))
+    kw = dict(rounds_per_heuristic=rounds_per_heuristic,
+              max_rounds=max_rounds, bfs_max_iters=bfs_max_iters,
+              backend=backend, stall_threshold=stall_threshold)
+    if mesh is not None:
+        from repro_torch.launch.mesh import dispatch_sharded
+        return dispatch_sharded(_grid_batch_impl, args, cs0.shape[0], mesh,
+                                mesh_axis, compact=compact, **kw)
     # public layout: batch axis leads everywhere, including state.cap
-    return res._replace(state=res.state._replace(
-        cap=torch.movedim(res.state.cap, 0, 1).contiguous()))
+    return _grid_batch_impl(*args, compact=compact, **kw)

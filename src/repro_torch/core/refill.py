@@ -22,11 +22,12 @@ Contract: cycles are per-instance pure and every admission enters with a
 fresh rounds counter through the same gather/cycle/scatter machinery, so
 a refilled session delivers for EVERY request exactly the result, values
 and counters, of that request's closed-batch solve at the same padding
-shape.
+shape. Seeds and admissions may be warm-started
+(``repro_torch.core.warm.WarmStart``), and the slots may split into
+device lanes (``mesh=``).
 
-Not ported yet, and raising ``NotImplementedError``: device lanes
-(``mesh=``, ROADMAP M7), span tracing (``tracer=``, M8) and warm starts
-(``run(warm=)`` and ``(payload, WarmStart)`` admissions, M6).
+Not ported yet, and raising ``NotImplementedError``: span tracing
+(``tracer=``, ROADMAP M8).
 """
 from __future__ import annotations
 
@@ -81,19 +82,6 @@ def _concat_problems(stacked1: list):
     return tree_map(lambda *xs: np.concatenate(xs, axis=0), *stacked1)
 
 
-def _is_warm_pair(item) -> bool:
-    """A ``(payload, WarmStart)`` admission: the reference's ``WarmStart``
-    is the named tuple ``(solution, base_problem, delta_bound)``."""
-    return (isinstance(item, tuple) and len(item) == 2
-            and getattr(type(item[1]), "_fields", ())[:1] == ("solution",))
-
-
-def _warm_not_ported():
-    return NotImplementedError(
-        "warm-started refill (run(warm=) and (payload, WarmStart) "
-        "admissions) is not ported yet: ROADMAP item M6")
-
-
 class RefillSolver:
     """One continuous-batching session: one kind, one bucket shape.
 
@@ -109,8 +97,10 @@ class RefillSolver:
       shape: the session bucket shape; every admitted payload must fit
         componentwise (``fits``).
       capacity: number of slots (per-cycle batch width upper bound).
-      mesh / mesh_axis: device lanes, not ported yet (ROADMAP M7): raise
-        ``NotImplementedError``.
+      mesh / mesh_axis: optional lane set
+        (``repro_torch.launch.mesh.make_solver_mesh``): the slots split
+        into per-lane ranges (``compact_lanes``; ``capacity`` must divide
+        evenly), admissions refill within lanes.
       tracer: span tracing, not ported yet (ROADMAP M8): anything but
         ``None`` raises ``NotImplementedError``.
       **solver_kw: the kind's static solver knobs (``backend=``,
@@ -122,10 +112,6 @@ class RefillSolver:
                  mesh_axis: str | None = None, tracer=None, **solver_kw):
         if capacity < 1:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
-        if mesh is not None or mesh_axis is not None:
-            raise NotImplementedError(
-                "RefillSolver(mesh=) (device lanes) is not ported yet: "
-                "ROADMAP item M7")
         if tracer is not None:
             raise NotImplementedError(
                 "RefillSolver(tracer=) (span tracing) is not ported yet: "
@@ -134,6 +120,24 @@ class RefillSolver:
         self.rt = refill_runtime(kind, **solver_kw)
         self.shape = tuple(int(s) for s in shape)
         self.capacity = int(capacity)
+        self._solver_kw = dict(solver_kw)
+        self._warm_fn = None
+        self._lanes = None
+        if mesh is not None:
+            from repro_torch.launch.mesh import compact_lanes
+            self._lanes = compact_lanes(mesh, mesh_axis, self.capacity)
+
+    def _warm_state1(self, problem1, payload, ws):
+        """Warm per-instance state through the kind's warm seam."""
+        from repro_torch.core.warm import build_warm_state
+        if self.kind.warm_state is None:
+            raise ValueError(
+                f"solver kind {self.kind.name!r} registered no warm_state "
+                f"hook; warm admissions need one")
+        if self._warm_fn is None:
+            self._warm_fn = self.kind.warm_state(**self._solver_kw)
+        return build_warm_state(self.kind, self.rt, self._warm_fn, problem1,
+                                payload, ws, self.shape)
 
     def fits(self, payload) -> bool:
         """Does a (validated) payload fit this session's bucket shape?"""
@@ -159,23 +163,31 @@ class RefillSolver:
           admit: optional ``admit(n_free) -> payloads`` callback, called at
             every cycle boundary with free slots; must return at most
             ``n_free`` payloads (``[]``/``None`` declines; the session ends
-            when nothing is live and ``admit`` declines).
+            when nothing is live and ``admit`` declines). Each item may be
+            a bare payload or a ``(payload, WarmStart)`` pair, which admits
+            the instance warm-started from its cached prior solution.
           on_result: optional ``on_result(request_index, result)``, called
             the moment that request's instance converges.
           on_error: optional ``on_error(request_index, exc)``: a payload
             that fails validation/padding/init at admission, or whose
             finalize/crop raises, fails ALONE and the session continues.
             Without ``on_error`` such failures propagate.
-          warm: warm-started seeds, not ported yet (ROADMAP M6): a
-            non-empty dict raises ``NotImplementedError``.
+          warm: optional ``{seed_position: WarmStart}`` for the
+            ``initial`` payloads; warm and cold seeds mix in one session
+            through per-slot init.
         """
-        if warm:
-            raise _warm_not_ported()
+        from repro_torch.core.warm import WarmStart, _concat_states
         rt, cap, shape = self.rt, self.capacity, self.shape
         initial = list(initial)
+        warm = dict(warm or {})
         if len(initial) > cap:
             raise ValueError(
                 f"{len(initial)} initial payloads > capacity {cap}")
+        for pos in warm:
+            if not 0 <= pos < len(initial):
+                raise ValueError(
+                    f"warm position {pos} out of range for "
+                    f"{len(initial)} initial payloads")
 
         results: dict[int, Any] = {}
         req_of_token: dict[int, int] = {}
@@ -208,18 +220,35 @@ class RefillSolver:
             return idx
 
         # seed slots: initial payloads first, inert fill for the rest
+        warmstarts: dict[int, Any] = {}     # request idx -> WarmStart
         stacked1, slot = [], 0
-        for payload in initial:
+        for pos, payload in enumerate(initial):
             idx = _intake(payload)
             if idx is None:
                 continue
             req_of_token[slot] = idx       # initial tokens are slot indices
+            if pos in warm:
+                warmstarts[idx] = warm[pos]
             stacked1.append(problems[idx])
             slot += 1
         for _ in range(cap - slot):
             inert = self.kind.inert_problem(shape)
             stacked1.append(tree_map(lambda a: np.asarray(a)[None], inert))
-        state = rt.init(_concat_problems(stacked1))
+        if warmstarts:
+            # mixed warm/cold seeding: per-slot init, concatenated along
+            # each leaf's batch axis (init is per-instance pure)
+            states1 = []
+            for token, p1 in enumerate(stacked1):
+                idx = req_of_token.get(token)
+                if idx in warmstarts:
+                    states1.append(self._warm_state1(
+                        p1, metas[idx][1], warmstarts[idx]))
+                else:
+                    states1.append(rt.init(p1))
+            state = _concat_states(rt.spec, states1)
+        else:
+            state = rt.init(_concat_problems(stacked1))
+        session = self
 
         class _Hook:
             def admit(self, n_free: int):
@@ -239,13 +268,19 @@ class RefillSolver:
                     if not payloads:           # a genuine decline
                         break
                     for item in payloads:
-                        if _is_warm_pair(item):
-                            raise _warm_not_ported()
+                        ws = None
+                        if (isinstance(item, tuple) and len(item) == 2
+                                and isinstance(item[1], WarmStart)):
+                            item, ws = item
                         idx = _intake(item)
                         if idx is None:
                             continue
                         try:
-                            st1 = rt.init(problems[idx])
+                            if ws is not None:
+                                st1 = session._warm_state1(
+                                    problems[idx], metas[idx][1], ws)
+                            else:
+                                st1 = rt.init(problems[idx])
                         except Exception as e:
                             _error(idx, e)
                             continue
@@ -270,5 +305,6 @@ class RefillSolver:
                 if on_result is not None:
                     on_result(idx, res)
 
-        run_compacted(rt.spec, state, cap, refill=_Hook())
+        run_compacted(rt.spec, state, cap, lanes=self._lanes,
+                      refill=_Hook())
         return results

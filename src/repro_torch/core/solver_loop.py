@@ -35,8 +35,8 @@ exact trajectory: compacted == masked == a loop of single solves, values
 and counters alike, and a refilled instance equals its closed-batch solve.
 
 Lanes: ``run_compacted`` takes contiguous batch slices pinned to devices.
-The entry points pass one lane on the solve's device (device lanes for
-several cards are ROADMAP item M7).
+The entry points pass one lane on the solve's device, or under ``mesh=``
+the lanes of ``repro_torch.launch.mesh.compact_lanes``.
 
 Cycle telemetry (``cycle_events``): the compacted driver reads the live
 set every cycle anyway and emits a ``CycleEvent`` per cycle whenever a

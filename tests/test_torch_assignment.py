@@ -28,6 +28,7 @@ from repro_torch.core.assignment import cost_scaling as tc
 from repro_torch.core.assignment.ref import (eps_optimal, optimal_weight,
                                              optimal_weight_bruteforce)
 from repro_torch.interop import to_numpy, to_torch
+from repro_torch.launch.mesh import make_solver_mesh
 
 METHODS = ["auction", "pushrelabel"]
 BACKENDS = ["xla", "pallas"]
@@ -196,8 +197,14 @@ def test_errors():
         tc.solve_assignment(w[:, :3], device="cpu")
     with pytest.raises(ValueError, match="batched"):   # compaction: M3
         tc.solve_assignment(w, compact=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="M7"):
-        tc.solve_assignment(w[None], mesh=object(), device="cpu")
+    one_lane = make_solver_mesh(1, device="cpu")
+    with pytest.raises(ValueError, match="batched"):    # lanes: (B, n, n)
+        tc.solve_assignment(w, mesh=one_lane, device="cpu")
+    with pytest.raises(ValueError, match="not in mesh axes"):
+        tc.solve_assignment(w[None], mesh=one_lane, mesh_axis="model",
+                            device="cpu")
+    assert_same(tc.solve_assignment(w[None], mesh=one_lane, device="cpu"),
+                tc.solve_assignment(w[None], device="cpu"))
 
 
 def test_default_device_without_card_raises(monkeypatch):

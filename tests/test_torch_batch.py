@@ -7,8 +7,9 @@ every result leaf and every ``BucketStats`` (``spread`` included) must be
 equal. Also checked: ``prepare_buckets`` + ``solve_prepared`` against
 ``solve_batch``; the host stage (bucket shapes, padding, inert instances
 that are born converged, the bonus-shifted cost padding) against the
-reference's; results against the oracles; the per-kind spellings; the
-``NotImplementedError`` of ``warm=`` (ROADMAP M6) and ``mesh=`` (M7).
+reference's; results against the oracles; the per-kind spellings; that
+``warm=`` routes to ``solve_warm`` (ROADMAP M6) and one lane of
+``mesh=`` (M7) equals no mesh.
 Tolerance: exact equality (``assert_same``).
 """
 import jax.numpy as jnp
@@ -28,6 +29,8 @@ from repro_torch.core.matching import (hopcroft_karp,
 from repro_torch.core.matching.ref import random_bipartite
 from repro_torch.core.maxflow.grid import GridProblem
 from repro_torch.core.maxflow.ref import maxflow_grid_ref, random_grid_problem
+from repro_torch.core.warm import WarmStart, solve_warm
+from repro_torch.launch.mesh import make_solver_mesh
 
 CPU = "cpu"
 KINDS = ["maxflow", "assignment", "matching"]
@@ -181,12 +184,26 @@ def test_empty_queue_and_errors():
     with pytest.raises(ValueError, match="unknown bucket mode"):
         tb.solve_batch("assignment", queue("assignment"), bucket="odd",
                        device=CPU)
-    with pytest.raises(NotImplementedError, match="M6"):
+    # warm= routes to solve_warm, which refuses a non-WarmStart
+    with pytest.raises(TypeError, match="WarmStart"):
         tb.solve_batch("assignment", queue("assignment"),
                        warm={0: object()}, device=CPU)
-    with pytest.raises(NotImplementedError, match="M7"):
-        tb.solve_batch("assignment", queue("assignment"), mesh=object(),
+    ws = queue("assignment")
+    sol = get_kind("assignment").solution_of(
+        tb.solve_batch("assignment", ws[:1], device=CPU)[0])
+    warm = {0: WarmStart(sol, base_problem=ws[0])}
+    for a, b in zip(tb.solve_batch("assignment", ws, warm=warm, device=CPU),
+                    solve_warm("assignment", ws, warm, device=CPU)):
+        assert_same(a, b)
+    # one lane is the solve without lanes; the axis must be the mesh's
+    one_lane = make_solver_mesh(1, device=CPU)
+    for a, b in zip(tb.solve_batch("assignment", ws, mesh=one_lane,
+                                   device=CPU),
+                    tb.solve_batch("assignment", ws, device=CPU)):
+        assert_same(a, b)
+    with pytest.raises(ValueError, match="not in mesh axes"):
+        tb.solve_batch("assignment", ws, mesh=one_lane, mesh_axis="model",
                        device=CPU)
-    with pytest.raises(NotImplementedError, match="M7"):
-        tb.prepare_buckets("matching", queue("matching"),
-                           mesh_axis="batch")
+    # a mesh axis without a mesh pads nothing, as in the reference
+    assert [p.n_pad for p in tb.prepare_buckets(
+        "matching", queue("matching"), mesh_axis="batch")] == [0]

@@ -25,7 +25,10 @@ from repro.core.maxflow.ref import (checkerboard_problem, long_path_problem,
                                     random_grid_problem)
 from repro.kernels.bfs_relabel import kernel as jk
 from repro.kernels.bfs_relabel import ops as jops
+from repro_torch.core.kinds import get_kind
 from repro_torch.core.maxflow import grid as tg
+from repro_torch.core.maxflow.ref import maxflow_grid_ref
+from repro_torch.core.warm import WarmStart, solve_warm
 from repro_torch.kernels.bfs_relabel import kernel as tk
 from repro_torch.kernels.bfs_relabel import ops as tops
 from repro_torch.kernels.bfs_relabel.ref import bfs_relabel_sweeps_ref
@@ -319,7 +322,10 @@ def test_drivers_keep_heights_in_the_kernels_range(monkeypatch, maker,
     seeds and planes in [1, INF]. Every K3 call of a grid solve, through
     the sink-only ``bfs_heights`` (xla) and the bidirectional
     ``bfs_relabel_heights`` (balanced), stays in that range, on its inputs
-    and on its outputs."""
+    and on its outputs. So does every K3 call of a warm re-solve of the
+    same grid with its capacities cut (``solve_warm``): the warm init's
+    heights are a fresh BFS of the repaired residual graph, with a uniform
+    N on the unreachable region, and its solve continues from them."""
     calls = []
     sweeps = tk._sweeps
 
@@ -332,10 +338,19 @@ def test_drivers_keep_heights_in_the_kernels_range(monkeypatch, maker,
 
     monkeypatch.setattr(tk, "_sweeps", spy)
     cap, cs, ct = maker(np.random.default_rng(5))
-    tg.maxflow_grid(tg.GridProblem(cap, cs, ct), backend=backend,
-                    device="cpu")
+    prob = tg.GridProblem(cap, cs, ct)
+    res = tg.maxflow_grid(prob, backend=backend, device="cpu")
     assert calls
     assert all(1 <= lo and hi <= INF for lo, hi in calls)
+    n_cold = len(calls)
+    sol = get_kind("maxflow").solution_of(res)
+    cut = tg.GridProblem(np.floor(cap * 0.5), cs, np.floor(ct * 0.75))
+    warm = solve_warm("maxflow", [cut],
+                      {0: WarmStart(sol, base_problem=prob)},
+                      backend=backend, device="cpu")[0]
+    assert len(calls) > n_cold
+    assert all(1 <= lo and hi <= INF for lo, hi in calls[n_cold:])
+    assert float(warm.flow) == maxflow_grid_ref(*cut)
 
 
 def test_sweep_counter_advances_on_the_cpu_path():

@@ -11,8 +11,8 @@ leaf and counter. The instances are chosen so that convergence is ragged
 cap, ``bucket_size``, ``run_compacted`` over two lanes, that the caller's
 state is never written, the ``CycleEvent`` streams of compacted solves and
 of masked solves under ``cycle_events(masked=True, detail=True)`` field
-for field, the ``trace_cycles`` shim, and the ``NotImplementedError`` of
-``mesh=`` (ROADMAP M7). Tolerance: exact equality (``assert_same``); the
+for field, the ``trace_cycles`` shim, and the errors and lanes of
+compacted solves (``mesh=``, ROADMAP M7). Tolerance: exact equality (``assert_same``); the
 instances are integer-valued.
 """
 import jax.numpy as jnp
@@ -31,6 +31,7 @@ from repro_torch.core.matching import bfs as tm
 from repro_torch.core.matching.ref import random_bipartite
 from repro_torch.core.maxflow import grid as tg
 from repro_torch.core.maxflow.ref import random_grid_problem
+from repro_torch.launch.mesh import compact_lanes, make_solver_mesh
 
 CPU = "cpu"
 
@@ -309,15 +310,22 @@ def test_compact_errors():
     with pytest.raises(ValueError, match="batched"):
         tc.solve_assignment(w, compact=True, device=CPU)
     cap, cs, ct = ragged_grids(9, 2)
-    with pytest.raises(NotImplementedError, match="M7"):
+    two_lanes = make_solver_mesh(2, device=CPU)
+    with pytest.raises(ValueError, match="not in mesh axes"):
         tg.maxflow_grid_batch(tg.GridProblem(cap, cs, ct), compact=True,
-                              mesh=object(), device=CPU)
-    with pytest.raises(NotImplementedError, match="M7"):
-        tc.solve_assignment(ragged_weights(0, 2), compact=True,
-                            mesh=object(), device=CPU)
-    with pytest.raises(NotImplementedError, match="M7"):
-        tm.match_bipartite_batch(ragged_graphs(0), compact=True,
-                                 mesh_axis="batch", device=CPU)
+                              mesh=two_lanes, mesh_axis="model", device=CPU)
+    with pytest.raises(ValueError, match="not divisible"):
+        compact_lanes(two_lanes, None, 3)
+    # lanes keep compaction within each lane: equal results
+    w = ragged_weights(0, 3)
+    assert_same(tc.solve_assignment(w, compact=True, mesh=two_lanes,
+                                    device=CPU),
+                tc.solve_assignment(w, compact=True, device=CPU))
+    # a mesh axis without a mesh is ignored, as in the reference
+    assert_same(tm.match_bipartite_batch(ragged_graphs(0), compact=True,
+                                         mesh_axis="batch", device=CPU),
+                tm.match_bipartite_batch(ragged_graphs(0), compact=True,
+                                         device=CPU))
     with pytest.raises(ValueError, match="unknown backend"):
         tm.match_bipartite_batch(ragged_graphs(0), compact=True,
                                  backend="nope", device=CPU)

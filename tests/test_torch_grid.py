@@ -29,6 +29,7 @@ from repro_torch.core.maxflow.ref import (ADVERSARIAL_GENERATORS,
                                           maxflow_grid_ref,
                                           random_grid_problem)
 from repro_torch.interop import to_numpy, to_torch
+from repro_torch.launch.mesh import make_solver_mesh
 
 BACKENDS = list(tg.VALID_BACKENDS)
 PROBLEMS = ["grid16", "grid32"] + sorted(ADVERSARIAL_GENERATORS)
@@ -170,11 +171,15 @@ def test_shape_and_backend_errors():
         tg.maxflow_grid(single, backend="nope", device="cpu")
     with pytest.raises(ValueError, match="balanced"):
         tg.maxflow_grid_batch(batch, backend="nope", device="cpu")
-    with pytest.raises(NotImplementedError, match="M7"):   # lanes, not M3
-        tg.maxflow_grid_batch(batch, compact=True, mesh=object(),
+    one_lane = make_solver_mesh(1, device="cpu")
+    with pytest.raises(ValueError, match="not in mesh axes"):
+        tg.maxflow_grid_batch(batch, mesh=one_lane, mesh_axis="model",
                               device="cpu")
-    with pytest.raises(NotImplementedError, match="M7"):
-        tg.maxflow_grid_batch(batch, mesh=object(), device="cpu")
+    for compact in (False, True):     # one lane is the solve without one
+        assert_same(tg.maxflow_grid_batch(batch, compact=compact,
+                                          mesh=one_lane, device="cpu"),
+                    tg.maxflow_grid_batch(batch, compact=compact,
+                                          device="cpu"))
 
 
 def test_default_device_without_card_raises(monkeypatch):

@@ -41,9 +41,12 @@ def test_import_pulls_in_neither_jax_nor_repro():
         "import repro_torch.core, repro_torch.core.kinds\n"
         "import repro_torch.core.batch, repro_torch.core.refill\n"
         "import repro_torch.core.solver_loop\n"
+        "import repro_torch.core.warm, repro_torch.checkpoint.store\n"
+        "import repro_torch.launch.mesh\n"
         "from repro_torch.core.kinds import get_kind, registered_kinds\n"
         "assert get_kind('matching').name == 'matching'\n"
         "assert registered_kinds() == ('maxflow', 'assignment', 'matching')\n"
+        "assert get_kind('maxflow').warm_state is not None\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "print(bad)\n")

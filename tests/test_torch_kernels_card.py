@@ -19,6 +19,7 @@ from repro_torch.configs.base import get_config, smoke_variant
 from repro_torch.core.assignment.cost_scaling import solve_assignment
 from repro_torch.core.assignment.ref import optimal_weight
 from repro_torch.core.batch import solve_batch
+from repro_torch.core.kinds import get_kind
 from repro_torch.core.matching import match_bipartite_batch
 from repro_torch.core.matching.ref import hopcroft_karp, random_bipartite
 from repro_torch.core.maxflow.grid import (INF_H, GridProblem,
@@ -570,6 +571,105 @@ def test_compact_matching_on_card_equals_masked(cuda_device, monkeypatch):
                                            device="cpu", **kw))
     assert [int(r.cardinality) for r in got] == [hopcroft_karp(a)[2]
                                                  for a in adjs]
+
+
+# Warm starts and device lanes on the card (ROADMAP M6, M7): a warm
+# re-solve of a mutated batch launches the path's kernels from the warm
+# state and must give the CPU's bits; lanes on the one card must give the
+# solve without lanes.
+
+
+def _warm_cases(kind, seed):
+    """(bases, mutated) ragged instances of ``kind`` and the solver knobs
+    that take its kernel path."""
+    rng = np.random.default_rng(seed)
+    if kind == "maxflow":
+        bases = [GridProblem(*random_grid_problem(rng, h, w))
+                 for h, w in [(96, 80), (64, 80), (96, 72)]]
+        mutated = [GridProblem(np.floor(p.cap_nbr * rng.uniform(
+            0.5, 1.5, p.cap_nbr.shape)).astype(np.float32), p.cap_src,
+            p.cap_sink) for p in bases]
+        return bases, mutated
+    if kind == "assignment":
+        bases = [rng.integers(0, 101, (n, n)) for n in (256, 200, 256)]
+        mutated = [np.clip(w + rng.integers(-3, 4, w.shape)
+                           * (rng.random(w.shape) < 0.01), 0, 100)
+                   for w in bases]
+        return bases, mutated
+    bases = [random_bipartite(rng, 300, 200, p)
+             for p in (4 / 200, 2 / 200, 8 / 200)]
+    mutated = [a ^ (rng.random(a.shape) < 0.002) for a in bases]
+    return bases, mutated
+
+
+WARM_PATHS = [("maxflow", dict(backend="pallas", rounds_per_heuristic=8),
+               ("grid_push_decide", "bfs_relabel_sweeps")),
+              ("maxflow", dict(backend="balanced", rounds_per_heuristic=8),
+               ("grid_push_decide_sched", "bfs_relabel_sweeps")),
+              ("assignment", dict(backend="pallas", method="auction"),
+               ("bidding",)),
+              ("assignment", dict(backend="pallas", method="pushrelabel"),
+               ("bidding",)),
+              ("matching", dict(backend="pallas"), ("frontier",))]
+_WRAPPERS = {"grid_push_decide": gk.grid_push_decide,
+             "grid_push_decide_sched": gk.grid_push_decide_sched,
+             "bfs_relabel_sweeps": bk.bfs_relabel_sweeps,
+             "bidding": bidk.bidding, "frontier": frk.frontier}
+
+
+@pytest.mark.parametrize("kind,kw,kernels", WARM_PATHS,
+                         ids=lambda v: v if isinstance(v, str) else None)
+def test_warm_on_card_equals_cpu(cuda_device, kind, kw, kernels):
+    """Every instance warm from its base's solution, masked and
+    compacted: the card's results equal the CPU's leaf for leaf, the
+    oracle's optimum, and the path's kernels launch."""
+    from repro_torch.core.warm import WarmStart, solve_warm
+    bases, mutated = _warm_cases(kind, 21)
+    k = get_kind(kind)
+    sols = {dev: [k.solution_of(r) for r in solve_batch(
+        kind, bases, device=dev, **kw)] for dev in (cuda_device, "cpu")}
+    want = None
+    for dev in ("cpu", cuda_device):
+        warm = {i: WarmStart(sols[dev][i], base_problem=bases[i])
+                for i in range(len(bases))}
+        for compact in (False, True):
+            before = {n: _WRAPPERS[n].launches for n in kernels}
+            got = solve_warm(kind, mutated, warm, compact=compact,
+                             device=dev, **kw)
+            if dev != "cpu":
+                assert all(_WRAPPERS[n].launches > before[n]
+                           for n in kernels), kernels
+            if want is None:
+                want = got
+            _require_same_results(got, want)
+    field, oracle = {
+        "maxflow": ("flow", lambda p: maxflow_grid_ref(*p)),
+        "assignment": ("weight", optimal_weight),
+        "matching": ("cardinality", lambda a: hopcroft_karp(a)[2])}[kind]
+    assert [getattr(r, field).item() for r in want] == [
+        oracle(p) for p in mutated]
+
+
+@pytest.mark.parametrize("kind,kw,kernels", WARM_PATHS[::2] + WARM_PATHS[3:4],
+                         ids=lambda v: v if isinstance(v, str) else None)
+def test_lanes_on_card_equal_no_mesh(cuda_device, kind, kw, kernels):
+    """``make_solver_mesh()`` is one lane on the one card; it and two
+    lanes on that card give the solve without lanes (masked and
+    compacted), with the bucket padded to the two lanes."""
+    from repro_torch.launch.mesh import make_solver_mesh
+    bases, _ = _warm_cases(kind, 22)
+    one = make_solver_mesh()
+    assert one.devices == (torch.device("cuda", 0),)
+    two = make_solver_mesh(2, device=cuda_device)
+    for compact in (False, True):
+        want = solve_batch(kind, bases, compact=compact, device=cuda_device,
+                           **kw)
+        for mesh in (one, two):
+            stats = []
+            got = solve_batch(kind, bases, compact=compact, mesh=mesh,
+                              stats_out=stats, device=cuda_device, **kw)
+            assert [s.n_pad for s in stats] == [-3 % len(mesh.devices)]
+            _require_same_results(got, want)
 
 
 # (B, Sq, Sk, H, KV, dh, dv), causal: the JAX kernel test's five shapes,

@@ -7,13 +7,17 @@ reference's; ``repro_torch.core.__all__ == repro.core.__all__``; unknown
 kinds raise naming the registered ones from ``get_kind`` and from every
 front end; duplicate and malformed names raise; ``ensure=False`` peeks;
 each builtin kind's ``loop_spec`` factory hands back the solver's cached
-spec, its warm-start hooks stay ``None`` (ROADMAP M6), and its
-``validate`` accepts and refuses what the reference's does.
+spec, its warm-start hooks (``init_state``, ``warm_state``,
+``solution_of``; ROADMAP M6) give the reference's states and solutions,
+and its ``validate`` accepts and refuses what the reference's does.
 """
+import jax.numpy as jnp
 import numpy as np
 import pytest
+from torch_parity import assert_same
 
 import repro.core as jcore
+import repro.core.batch as jbatch
 import repro.core.kinds as jkinds
 import repro_torch.core as tcore
 import repro_torch.core.kinds as kinds_mod
@@ -90,19 +94,49 @@ def test_malformed_kind_name_raises():
 
 
 def test_builtin_kinds_register_every_capability_but_warm_start():
+    # The name predates M6: the warm-start hooks are registered now, and
+    # held here to the reference's in effect.
+    payloads = _hook_payloads()
     for name in BUILTIN:
         k = get_kind(name)
         ref = jkinds.get_kind(name)
         for field in ("validate", "inert_problem", "prepare_buckets",
-                      "solve_prepared", "loop_spec", "refill"):
+                      "solve_prepared", "loop_spec", "refill", "init_state",
+                      "warm_state", "solution_of"):
             assert callable(getattr(k, field)), (name, field)
-        assert (k.init_state, k.warm_state, k.solution_of) == (None,) * 3
-        assert ref.warm_state is not None    # the reference's: ROADMAP M6
+        p = payloads[name]
+        jp = (jbatch.GridProblem(*map(jnp.asarray, p)) if name == "maxflow"
+              else p)
+        res = solve_batch(name, [p], device="cpu")[0]
+        jres = jbatch.solve_batch(name, [jp])[0]
+        sol, jsol = k.solution_of(res), ref.solution_of(jres)
+        assert_same(sol, jsol)
+        rt, jrt = k.refill(device="cpu"), ref.refill()
+        shape = rt.shape_of(k.validate(p))
+        p1, jp1 = rt.pad_one(k.validate(p), shape), jrt.pad_one(
+            ref.validate(jp), shape)
+        assert_same(k.init_state(device="cpu")(p1), ref.init_state()(jp1))
+        assert_same(k.warm_state(device="cpu")(p1, sol, base_problem1=p1,
+                                               delta_bound=1.0),
+                    ref.warm_state()(jp1, {key: np.asarray(v) for key, v
+                                           in jsol.items()},
+                                     base_problem1=jp1, delta_bound=1.0))
         spec = k.loop_spec()
         assert spec is k.loop_spec()         # cached per knob tuple
         assert spec.rounds_per_cycle == ref.loop_spec().rounds_per_cycle
         assert (spec.heur is None) == (ref.loop_spec().heur is None)
         assert refill_runtime(name, device="cpu").spec is spec
+
+
+def _hook_payloads():
+    """One payload per builtin kind for the warm-start hooks."""
+    rng = np.random.default_rng(1)
+    from repro_torch.core.matching.ref import random_bipartite
+    from repro_torch.core.maxflow.grid import GridProblem
+    from repro_torch.core.maxflow.ref import random_grid_problem
+    return {"maxflow": GridProblem(*random_grid_problem(rng, 5, 6)),
+            "assignment": rng.integers(0, 30, (5, 5)),
+            "matching": random_bipartite(rng, 6, 5, 0.4)}
 
 
 def _payloads():

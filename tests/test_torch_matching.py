@@ -26,6 +26,7 @@ from repro_torch.core.matching import (MatchingResult, hopcroft_karp,
 from repro_torch.core.matching import bfs as tb
 from repro_torch.core.matching import ref as tref
 from repro_torch.interop import to_numpy, to_torch
+from repro_torch.launch.mesh import make_solver_mesh
 
 BACKENDS = ["xla", "pallas"]
 BLOCKS = [(4, 0), (0, 3), (5, 6), (3, 3)]
@@ -143,8 +144,13 @@ def test_errors():
     with pytest.raises(ValueError, match="unknown backend 'cuda'"):
         match_bipartite_batch(adj[None], compact=True, backend="cuda",
                               device="cpu")
-    with pytest.raises(NotImplementedError, match="M7"):
-        match_bipartite_batch(adj[None], mesh=object(), device="cpu")
+    one_lane = make_solver_mesh(1, device="cpu")
+    with pytest.raises(ValueError, match="not in mesh axes"):
+        match_bipartite_batch(adj[None], mesh=one_lane, mesh_axis="model",
+                              device="cpu")
+    assert_same(match_bipartite_batch(adj[None], mesh=one_lane,
+                                      device="cpu"),
+                match_bipartite_batch(adj[None], device="cpu"))
 
 
 def test_default_device_without_card_raises(monkeypatch):

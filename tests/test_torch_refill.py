@@ -8,8 +8,9 @@ and the JAX package's ``RefillSolver`` and ``solve_batch``, at capacity
 1, 2 and 4. Also checked: empty seed slots are offered before cycle 0, a
 decline is re-offered while anything is live, results arrive in
 convergence order, the ``admit`` contract, a bad admission fails alone,
-and the ``NotImplementedError`` of device lanes (ROADMAP M7), span
-tracing (M8) and warm starts (M6). Tolerance: exact equality.
+that device lanes (ROADMAP M7) and warm seeds and admissions (M6) give
+the closed batch's and ``solve_warm``'s results, and the
+``NotImplementedError`` of span tracing (M8). Tolerance: exact equality.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -19,13 +20,15 @@ from torch_parity import assert_same
 import repro.core.batch as jbatch
 import repro.core.refill as jrefill
 import repro_torch.core.kinds as kinds_mod
-from repro.core.warm import WarmStart
 from repro_torch.core.assignment.ref import optimal_weight
 from repro_torch.core.batch import solve_batch
 from repro_torch.core.matching.ref import random_bipartite
 from repro_torch.core.maxflow.grid import GridProblem
 from repro_torch.core.maxflow.ref import random_grid_problem
+from repro_torch.core.kinds import get_kind
 from repro_torch.core.refill import RefillSolver, refill_runtime
+from repro_torch.core.warm import WarmStart, solve_warm
+from repro_torch.launch.mesh import make_solver_mesh
 
 CPU = "cpu"
 
@@ -218,19 +221,27 @@ def test_bad_admission_fails_alone():
 
 
 def test_unported_options_raise_naming_their_items():
+    # Device lanes (M7) and warm starts (M6) are ported now; the options
+    # that named them are held to the ported behaviour, and span tracing
+    # (M8) still raises naming its item.
     rng = np.random.default_rng(8)
     ws = [rng.integers(0, 50, (4, 4)) for _ in range(2)]
-    with pytest.raises(NotImplementedError, match="M7"):
-        RefillSolver("assignment", shape=(4,), capacity=2, mesh=object(),
-                     device=CPU)
     with pytest.raises(NotImplementedError, match="M8"):
         RefillSolver("assignment", shape=(4,), capacity=2, tracer=object(),
                      device=CPU)
+    closed = solve_batch("assignment", ws, bucket="max", device=CPU)
+    got = RefillSolver("assignment", shape=(4,), capacity=2, device=CPU,
+                       mesh=make_solver_mesh(2, device=CPU)).run(ws)
+    for i in range(2):
+        assert_same(got[i], closed[i])
+    sol = get_kind("assignment").solution_of(closed[0])
+    warm = WarmStart(sol, base_problem=ws[0])
     s = RefillSolver("assignment", shape=(4,), capacity=1, device=CPU)
-    with pytest.raises(NotImplementedError, match="M6"):
-        s.run(ws[:1], warm={0: WarmStart(solution={})})
-    with pytest.raises(NotImplementedError, match="M6"):
-        s.run(ws[:1], admit=_queue_admit([(ws[1], WarmStart({}))]))
+    want = solve_warm("assignment", ws[1:], {0: warm}, device=CPU)[0]
+    assert_same(s.run(ws[1:], warm={0: warm})[0], want)
+    got = s.run(ws[:1], admit=_queue_admit([(ws[1], warm)]))
+    assert_same(got[0], closed[0])
+    assert_same(got[1], want)
     # an edge-list matching payload is a 2-tuple too, and no warm pair
     edges = (np.array([[0, 1], [1, 0]]), (2, 2))
     got = RefillSolver("matching", shape=(2, 2), capacity=1,
