@@ -102,7 +102,25 @@ Drives ``src/repro_torch`` only (no ``jax``, nothing of ``repro``):
    launch its path's kernels (``xla`` none of K1, K2, K4, K5). ``[warm]``
    lines give warm and cold rounds per instance, walls and the device
    busy of one profiled warm and cold solve each;
-10. reads the launch counts of every solve of phases 3 to 9 (each set to
+10. drives the serving engines (``phase_engine``, ROADMAP M8): the main
+   paths' batches (4 x 512^2 grids, 8 x 512^2 weights, 4 x 4096^2
+   graphs, ``pallas``) as one queue interleaved by kind through a
+   ``SolverEngine``, untraced and traced, equal to each other, to
+   ``solve_batch`` of each kind and to the oracles, launching K1, K3, K4
+   and K5 (the grids once more on ``balanced``: K2, K3); then
+   ``phase_batch``'s three ragged queues as one stream in an order from
+   SEED, through a traced ``AsyncSolverEngine`` of one and of two lanes
+   (each lane on a CUDA stream of its own), refill off and on, every
+   future equal to the sync flush of the stream bit for bit. ``[engine]``
+   lines give per run the wall of the stream, device busy summed and as a
+   union of intervals (one more profiled run), the seconds and the share
+   of the wall under each span name, each bucket's device-solve seconds,
+   the metrics snapshot and its ``prometheus_text``; the two-lane closed
+   run's trace is saved to ``build/engine_trace.json``. The closed stream
+   runs once more at one lane, then two, with the thread switch interval
+   cut to 0.5 ms. Last, ``phase_warm``'s edits go through
+   ``submit(base=ticket, delta=...)`` and must equal its warm results;
+11. reads the launch counts of every solve of phases 3 to 10 (each set to
    0 just before its solve and read just after) and fails if a kernel of
    that solve was never launched, or if K4 or K5 was launched by an
    ``xla`` solve. K3 counts launches (one per call of up to 8 sweeps) and
@@ -211,6 +229,17 @@ REFILL_CAPACITY = 4
 WARM_GRID_SHARE = 0.01
 WARM_ASSIGN_SHARE = 0.001
 WARM_MATCH_TOGGLES = 64
+# phase_engine: the serving engines on the main paths' kernels, one
+# SolverEngine / AsyncSolverEngine knob set for all three kinds; the async
+# runs see no deadline (batches form by size, the rest by ``flush_now``),
+# so every batch holds one kind's whole queue, as the sync flush does
+ENGINE_KW = {"maxflow": dict(backend="pallas"),
+             "assignment": dict(backend="pallas", method="auction"),
+             "matching": dict(backend="pallas")}
+ENGINE_MAX_BATCH = 8
+ENGINE_NO_DEADLINE_MS = 600_000.0
+SPAN_NAMES = ("submit", "queue-wait", "bucket/pad", "device-solve",
+              "refill-admission", "resolve")
 # the kernels of the compacted driver's gathers (``index_select``) and
 # scatters (``index_copy_``), by name; the solves launch them nowhere else
 GATHER_SCATTER_KERNELS = ("indexSelect", "index_copy")
@@ -282,6 +311,17 @@ def trace_device_events(prof):
             acc[ev.name()] = (us + ev.duration_ns() / 1e3, n + 1)
     return sorted(((us, n, key) for key, (us, n) in acc.items()),
                   reverse=True)
+
+
+def device_union_s(prof) -> float:
+    """Seconds in which at least one device event of a ``torch.profiler``
+    run was running: the union of their intervals. Below the summed busy
+    time exactly when events on several streams overlapped."""
+    from torch.autograd import DeviceType
+    return union_seconds(
+        (ev.start_ns() / 1e9, ev.end_ns() / 1e9)
+        for ev in prof.profiler.kineto_results.events()
+        if ev.device_type() == DeviceType.CUDA and ev.duration_ns() > 0)
 
 
 class Timing(NamedTuple):
@@ -951,6 +991,7 @@ def profile(what: str, wall: float, fn, *a, **kw) -> dict:
         _, secs = solve(fn, *a, **kw)
     rows = trace_device_events(prof)
     busy = sum(r[0] for r in rows) / 1e6
+    union = device_union_s(prof)
     launches = sum(r[1] for r in rows)
     gather_ms = sum(r[0] for r in rows
                     if any(k in r[2] for k in GATHER_SCATTER_KERNELS)) / 1e3
@@ -969,7 +1010,8 @@ def profile(what: str, wall: float, fn, *a, **kw) -> dict:
         log(f"[profile]   port kernel {name}: {ms:.3f} ms over {count} "
             f"launches, {ms / count:.4f} ms each")
     return dict(busy_s=busy, idle_share=1 - busy / wall, launches=launches,
-                port_kernels=port, gather_scatter_ms=gather_ms)
+                port_kernels=port, gather_scatter_ms=gather_ms,
+                union_s=union)
 
 
 def check_oracle(res, oracle, what: str, invariant: bool = True):
@@ -1474,10 +1516,11 @@ def phase_batch(dev, counts: dict, card: str) -> dict:
     M3): the three ragged queues masked and compacted in turns
     (``drive_queue``, ``batch_report``), the maxflow queue once more on
     the balanced backend (K2, K3; one solve per driver), then a refill
-    session per kind (``drive_refill``). Returns walls and busy times."""
-    summary = {}
+    session per kind (``drive_refill``). Returns walls and busy times,
+    and each queue's oracle values by kind."""
+    summary, oracles = {}, {}
     for q in batch_queues():
-        oracle = batch_oracle(q)
+        oracle = oracles[q.kind] = batch_oracle(q)
         log(f"[batch] {q.kind}: {len(q.payloads)} requests, bucket "
             f"{q.bucket!r}, {q.kw}, oracle {oracle}")
         label = f"batch_{q.kind}"
@@ -1494,7 +1537,7 @@ def phase_batch(dev, counts: dict, card: str) -> dict:
             drive_balanced(bal, dev, counts, oracle)
         drive_refill(q, dev, counts, out["results"])
         drive_lanes(q, dev, counts, out["results"])
-    return summary
+    return summary, oracles
 
 
 def drive_balanced(q: Queue, dev, counts: dict, oracle: list):
@@ -1679,7 +1722,8 @@ def drive_warm(what: str, kind: str, bases: list, mutated: list,
     return dict(rounds=rounds, ratio_sum=ratio_sum, ratio_max=ratio_max,
                 walls=walls, busy_s={r: p["busy_s"] for r, p in prof.items()},
                 init_s=init_s, bound_s=bound_s,
-                kernels={r: p["port_kernels"] for r, p in prof.items()})
+                kernels={r: p["port_kernels"] for r, p in prof.items()},
+                bases=bases, mutated=mutated, warm=want)
 
 
 def phase_warm(dev, counts: dict, grids: list, card: str) -> dict:
@@ -1732,6 +1776,319 @@ def phase_warm(dev, counts: dict, grids: list, card: str) -> dict:
             f"{r['ratio_sum']:.3f}, max {r['ratio_max']:.3f}; device busy "
             f"{r['busy_s']['warm_masked']:.4f} / {r['busy_s']['cold']:.4f} "
             f"s")
+    return out
+
+
+def engine_results(eng, stream: list) -> tuple[list, float]:
+    """Submit ``(kind, payload)`` ``stream`` to a ``SolverEngine`` and
+    flush it: the results in stream order (``to_numpy``) and the wall."""
+    from repro_torch.interop import to_numpy
+    tickets = [eng.submit(kind, p) for kind, p in stream]
+    out, wall = solve(eng.flush)
+    return [to_numpy(out[t]) for t in tickets], wall
+
+
+def require_same_list(got: list, want: list, what: str):
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} results, {len(want)} "
+                             f"wanted")
+    for i, (a, b) in enumerate(zip(got, want)):
+        require_same(a, b, f"{what}, request {i}")
+
+
+def span_seconds(tracer) -> dict:
+    """Seconds per span name, summed over the tracer's spans."""
+    out = dict.fromkeys(SPAN_NAMES, 0.0)
+    for sp in tracer.spans():
+        out[sp.name] = out.get(sp.name, 0.0) + (sp.t1 - sp.t0)
+    return out
+
+
+def union_seconds(intervals) -> float:
+    """Length of the union of ``(t0, t1)`` intervals."""
+    total, end = 0.0, None
+    for t0, t1 in sorted(intervals):
+        if end is None or t0 > end:
+            total, end = total + (t1 - t0), t1
+        elif t1 > end:
+            total, end = total + (t1 - end), t1
+    return total
+
+
+def span_cover(tracer) -> dict:
+    """Seconds per span name in which at least one span of that name was
+    open (the union of their intervals), and ``hand-off``: the union, per
+    ticket, of the time from its queue-wait's end to its solve's start
+    (the batch's bucket/pad, then its wait for a free lane)."""
+    by_name, ends, starts = {}, {}, {}
+    for sp in tracer.spans():
+        by_name.setdefault(sp.name, []).append((sp.t0, sp.t1))
+        t = sp.attrs.get("ticket")
+        if sp.name == "queue-wait":
+            ends[t] = sp.t1
+        elif sp.name == "solve":
+            starts[t] = sp.t0
+    out = {n: union_seconds(by_name.get(n, [])) for n in SPAN_NAMES}
+    out["hand-off"] = union_seconds(
+        [(ends[t], starts[t]) for t in ends if t in starts])
+    return out
+
+
+def engine_sync(dev, counts: dict, grids: list, oracle: list) -> None:
+    """The sync engine at full width: the main paths' batches (4 x 512^2
+    grids, 8 x 512^2 weights, 4 x 4096^2 graphs) as one queue interleaved
+    by kind, flushed untraced and traced. Each flush must equal
+    ``solve_batch`` of each kind and the oracles, bit for bit the one the
+    other, and launch K1, K3, K4 and K5; the grids once more on
+    ``balanced`` must launch K2 and K3 and equal its ``solve_batch``."""
+    from repro_torch.core.assignment.ref import optimal_weight
+    from repro_torch.core.batch import solve_batch
+    from repro_torch.core.matching.ref import hopcroft_karp
+    from repro_torch.core.maxflow.grid import GridProblem
+    from repro_torch.interop import to_numpy
+    from repro_torch.obs import Tracer
+    from repro_torch.serve.engine import SolverEngine
+    queues = {"maxflow": [GridProblem(*p) for p in grids],
+              "assignment": list(assignment_weights()),
+              "matching": list(matching_adjacency())}
+    stream = [(kind, q[i]) for i in range(max(map(len, queues.values())))
+              for kind, q in queues.items() if i < len(q)]
+    solved = {kind: solve_batch(kind, q, device=dev, **ENGINE_KW[kind])
+              for kind, q in queues.items()}
+    oracles = {"maxflow": oracle,
+               "assignment": [optimal_weight(w)
+                              for w in queues["assignment"]],
+               "matching": [hopcroft_karp(a)[2]
+                            for a in queues["matching"]]}
+    for kind, res in solved.items():
+        check_batch(kind, res, oracles[kind], f"engine_sync {kind} oracle")
+    want = {kind: [to_numpy(r) for r in res] for kind, res in solved.items()}
+    order = {kind: [i for i, (k, _) in enumerate(stream) if k == kind]
+             for kind in queues}
+    runs = {}
+    for name, tracer in (("engine_sync", None),
+                         ("engine_sync_traced", Tracer())):
+        eng = SolverEngine(device=dev, solver_kw=ENGINE_KW, tracer=tracer)
+        reset_counts()
+        res, wall = engine_results(eng, stream)
+        counts[name] = read_counts()
+        require_launched(counts[name], ("grid_push_decide",
+                                        "bfs_relabel_sweeps", "bidding",
+                                        "frontier"), name)
+        for kind, idx in order.items():
+            require_same_list([res[i] for i in idx], want[kind],
+                              f"{name} {kind} vs solve_batch")
+        runs[name] = res
+        spans = "" if tracer is None else f", spans {span_seconds(tracer)}"
+        log(f"[engine] {name}: {len(stream)} requests, {wall:.4f} s{spans}")
+    require_same_list(runs["engine_sync_traced"], runs["engine_sync"],
+                      "engine_sync traced vs untraced")
+    name = "engine_sync_balanced"
+    kw = {"maxflow": dict(backend="balanced")}
+    reset_counts()
+    res, wall = engine_results(SolverEngine(device=dev, solver_kw=kw),
+                               [("maxflow", p) for p in queues["maxflow"]])
+    counts[name] = read_counts()
+    require_launched(counts[name], ("grid_push_decide_sched",
+                                    "bfs_relabel_sweeps"), name)
+    require_same_list(res, [to_numpy(r) for r in solve_batch(
+        "maxflow", queues["maxflow"], device=dev, **kw["maxflow"])],
+        f"{name} vs solve_batch")
+    log(f"[engine] {name}: {wall:.4f} s, launches {counts[name]}")
+
+
+def engine_stream() -> tuple[list, list]:
+    """``phase_batch``'s three ragged queues as one stream of ``(kind,
+    payload)`` in an order drawn from SEED, and each request's position
+    in its queue."""
+    src = [(q.kind, i, p) for q in batch_queues()
+           for i, p in enumerate(q.payloads)]
+    order = np.random.default_rng(SEED + 3).permutation(len(src))
+    return ([src[j][::2] for j in order], [src[j][1] for j in order])
+
+
+def drive_async(dev, counts: dict, stream: list, want: list, n_lanes: int,
+                refill: bool, card: str, trace_path=None) -> dict:
+    """``stream`` through a traced ``AsyncSolverEngine`` of ``n_lanes``
+    lanes (each on its own CUDA stream), ``refill`` off or on: every
+    future must equal the sync flush (``want``) bit for bit and the path's
+    kernels must launch. Logs the wall of the whole stream, the device
+    busy (summed and as the union of intervals) and idle share of one
+    more profiled run, the seconds per span name, the metrics snapshot
+    and its ``prometheus_text``; saves the Chrome trace to
+    ``trace_path``."""
+    from repro_torch.interop import to_numpy
+    from repro_torch.obs import Tracer, prometheus_text
+    from repro_torch.serve.scheduler import AsyncSolverEngine
+    name = f"engine_async_lanes{n_lanes}_{'refill' if refill else 'closed'}"
+
+    def run(tracer=None):
+        with AsyncSolverEngine(device=dev, n_lanes=n_lanes, refill=refill,
+                               max_batch=ENGINE_MAX_BATCH,
+                               max_delay_ms=ENGINE_NO_DEADLINE_MS,
+                               solver_kw=ENGINE_KW, tracer=tracer) as eng:
+            futs = [eng.submit(kind, p) for kind, p in stream]
+            eng.flush_now()
+            res = [f.result(timeout=600) for f in futs]
+        return eng, res
+
+    tracer = Tracer()
+    reset_counts()
+    (eng, res), wall = solve(run, tracer)
+    counts[name] = read_counts()
+    require_launched(counts[name], ("grid_push_decide", "bfs_relabel_sweeps",
+                                    "bidding", "frontier"), name)
+    require_same_list([to_numpy(r) for r in res], want,
+                      f"{name} vs sync flush")
+    spans, cover = span_seconds(tracer), span_cover(tracer)
+    snap = eng.metrics.snapshot()
+    prof = profile(name, wall, run)
+    log(f"[engine] {name} on {card}: {len(stream)} requests in {wall:.4f} "
+        f"s; device busy {prof['busy_s']:.4f} s summed, "
+        f"{prof['union_s']:.4f} s as a union of intervals (overlap "
+        f"{prof['busy_s'] / prof['union_s']:.3f}); idle share "
+        f"{1 - prof['union_s'] / wall:.3f}; launches {counts[name]}")
+    log(f"[engine] {name}: seconds per span (summed) "
+        + ", ".join(f"{k} {v:.4f}" for k, v in spans.items())
+        + f"; {len(tracer.spans())} spans")
+    log(f"[engine] {name}: share of the wall under each span (union) "
+        + ", ".join(f"{k} {v / wall:.3f}" for k, v in cover.items()))
+    log(f"[engine] {name}: device-solve seconds by kind "
+        + ", ".join(f"{sp.attrs['kind']} {sp.t1 - sp.t0:.4f}"
+                    for sp in tracer.spans() if sp.name == "device-solve")
+        + f" (switch interval {sys.getswitchinterval()} s)")
+    log(f"[engine] {name}: metrics {json.dumps(snap)}")
+    log(f"[engine] {name}: prometheus_text\n{prometheus_text(snap)}")
+    if trace_path is not None:
+        tracer.save(trace_path)
+        log(f"[engine] {name}: Chrome trace in {trace_path}")
+    return dict(wall=wall, busy_s=prof["busy_s"], union_s=prof["union_s"],
+                spans=spans, cover=cover)
+
+
+def engine_switch_probe(dev, stream: list, want: list, card: str,
+                        interval: float = 5e-4) -> dict:
+    """The closed-batch stream at one lane, then two, with the
+    interpreter's thread switch interval cut to ``interval`` and restored
+    after: whether the two lanes' wall is the lane threads waiting for
+    their turn at the GIL. Results must still equal the sync flush."""
+    from repro_torch.interop import to_numpy
+    from repro_torch.serve.scheduler import AsyncSolverEngine
+
+    def run(n_lanes):
+        with AsyncSolverEngine(device=dev, n_lanes=n_lanes,
+                               max_batch=ENGINE_MAX_BATCH,
+                               max_delay_ms=ENGINE_NO_DEADLINE_MS,
+                               solver_kw=ENGINE_KW) as eng:
+            futs = [eng.submit(kind, p) for kind, p in stream]
+            eng.flush_now()
+            return [f.result(timeout=600) for f in futs]
+
+    walls = {1: [], 2: []}
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(interval)
+    try:
+        for n_lanes in (1, 2):
+            res, wall = solve(run, n_lanes)
+            require_same_list([to_numpy(r) for r in res], want,
+                              f"switch probe, {n_lanes} lanes")
+            walls[n_lanes].append(wall)
+    finally:
+        sys.setswitchinterval(old)
+    log(f"[engine] switch interval {interval} s (default {old}) on {card}: "
+        f"walls one lane {walls[1][0]:.4f} s, two lanes {walls[2][0]:.4f} "
+        f"s: two / one {walls[2][0] / walls[1][0]:.3f}")
+    return walls
+
+
+def engine_warm(dev, counts: dict, warm: dict) -> None:
+    """Warm re-solves through the engine: each path's bases solved, then
+    ``submit(base=ticket, delta=...)`` with ``phase_warm``'s edits as
+    ``GraphDelta``s; every result must equal ``phase_warm``'s masked warm
+    result bit for bit and launch the path's kernels."""
+    from repro_torch.core.warm import GraphDelta, SolutionCache
+    from repro_torch.interop import to_numpy
+    from repro_torch.serve.engine import SolverEngine
+
+    def deltas(kind, base, new):
+        fields = ("cap_nbr", "cap_sink") if kind == "maxflow" else (None,)
+        out = []
+        for f in fields:
+            a, b = (np.asarray(getattr(x, f) if f else x)
+                    for x in (base, new))
+            idx = np.nonzero(a != b)
+            out.append(GraphDelta(idx=idx, values=b[idx], field=f))
+        return out
+
+    for path, kind, kernels in (
+            ("maxflow_pallas", "maxflow",
+             ("grid_push_decide", "bfs_relabel_sweeps")),
+            ("assignment_auction", "assignment", ("bidding",)),
+            ("matching", "matching", ("frontier",))):
+        w = warm[path]
+        # four 4096^2 graphs and their solutions pass the cache's default
+        # 64 MiB budget, which would evict the first base before its turn
+        eng = SolverEngine(device=dev, solver_kw=ENGINE_KW,
+                           cache=SolutionCache(max_bytes=1 << 30))
+        tickets = [eng.submit(kind, b) for b in w["bases"]]
+        eng.flush()
+        name = f"engine_warm_{path}"
+        warm_t = [eng.submit(kind, base=t, delta=deltas(kind, b, m))
+                  for t, b, m in zip(tickets, w["bases"], w["mutated"])]
+        reset_counts()
+        out, wall = solve(eng.flush)
+        counts[name] = read_counts()
+        require_launched(counts[name], kernels, name)
+        require_same_list([to_numpy(out[t]) for t in warm_t], w["warm"],
+                          f"{name} vs phase_warm")
+        log(f"[engine] {name}: {len(warm_t)} warm requests from base "
+            f"tickets, {wall:.4f} s, equal to phase_warm's warm results")
+
+
+def phase_engine(dev, counts: dict, grids: list, oracle: list, warm: dict,
+                 batch_oracles: dict, card: str) -> dict:
+    """The serving engines on the card (ROADMAP M8): the sync engine at
+    full width (``engine_sync``), ``phase_batch``'s ragged queues as one
+    stream through ``AsyncSolverEngine`` at one and two lanes, refill off
+    and on, each equal to the sync flush (``drive_async``), the closed
+    stream under a short thread switch interval
+    (``engine_switch_probe``), and warm requests through the engine
+    (``engine_warm``). Returns the async runs' walls, busy times and span
+    seconds."""
+    from repro_torch.serve.engine import SolverEngine
+    engine_sync(dev, counts, grids, oracle)
+    stream, index = engine_stream()
+    reset_counts()
+    want, wall = engine_results(SolverEngine(device=dev,
+                                             solver_kw=ENGINE_KW), stream)
+    counts["engine_stream_sync"] = read_counts()
+    field = {"maxflow": "flow", "assignment": "weight",
+             "matching": "cardinality"}
+    for (kind, _), i, r in zip(stream, index, want):   # phase_batch's
+        if r[field[kind]].item() != batch_oracles[kind][i]:   # oracle
+            raise AssertionError(f"engine stream {kind} request {i}: "
+                                 f"{r[field[kind]]} != oracle "
+                                 f"{batch_oracles[kind][i]}")
+    log(f"[engine] sync flush of the {len(stream)}-request stream: "
+        f"{wall:.4f} s, oracle values, launches "
+        f"{counts['engine_stream_sync']}")
+    out = {}
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    for n_lanes in (1, 2):
+        for refill in (False, True):
+            out[(n_lanes, refill)] = drive_async(
+                dev, counts, stream, want, n_lanes, refill, card,
+                trace_path=build / "engine_trace.json"
+                if (n_lanes, refill) == (2, False) else None)
+    for refill in (False, True):
+        one, two = out[(1, refill)], out[(2, refill)]
+        log(f"[engine] refill {'on' if refill else 'off'} on {card}: two "
+            f"lanes / one lane: wall {two['wall'] / one['wall']:.3f}, busy "
+            f"summed {two['busy_s'] / one['busy_s']:.3f}, union "
+            f"{two['union_s'] / one['union_s']:.3f}")
+    engine_switch_probe(dev, stream, want, card)
+    engine_warm(dev, counts, warm)
     return out
 
 
@@ -1928,11 +2285,14 @@ def main() -> int:
     kernels["frontier"]["in_solve"] = phase_matching(dev, counts)[
         "k5_in_solve"]
     t_batch = time.perf_counter()
-    batch = phase_batch(dev, counts, card)
+    batch, batch_oracles = phase_batch(dev, counts, card)
     log(f"[batch] done in {time.perf_counter() - t_batch:.1f} s: {batch}")
     t_warm = time.perf_counter()
-    phase_warm(dev, counts, problems, card)
+    warm = phase_warm(dev, counts, problems, card)
     log(f"[warm] done in {time.perf_counter() - t_warm:.1f} s")
+    t_engine = time.perf_counter()
+    phase_engine(dev, counts, problems, oracle, warm, batch_oracles, card)
+    log(f"[engine] done in {time.perf_counter() - t_engine:.1f} s")
     serve = phase_serve(dev, counts)
     k6 = serve["prefill"]["port_kernels"]
     kernels["flash_attention_fwd"]["prefill_ms_per_launch"] = (

@@ -23,14 +23,15 @@ fresh rounds counter through the same gather/cycle/scatter machinery, so
 a refilled session delivers for EVERY request exactly the result, values
 and counters, of that request's closed-batch solve at the same padding
 shape. Seeds and admissions may be warm-started
-(``repro_torch.core.warm.WarmStart``), and the slots may split into
-device lanes (``mesh=``).
-
-Not ported yet, and raising ``NotImplementedError``: span tracing
-(``tracer=``, ROADMAP M8).
+(``repro_torch.core.warm.WarmStart``), the slots may split into device
+lanes (``mesh=``), and a ``tracer=`` (``repro_torch.obs.Tracer``)
+records one ``bucket/pad`` span per payload it takes in and one
+``device-solve`` span per session, as the reference does.
 """
 from __future__ import annotations
 
+import contextlib
+import time
 from typing import Any, Callable, NamedTuple
 
 import numpy as np
@@ -101,8 +102,10 @@ class RefillSolver:
         (``repro_torch.launch.mesh.make_solver_mesh``): the slots split
         into per-lane ranges (``compact_lanes``; ``capacity`` must divide
         evenly), admissions refill within lanes.
-      tracer: span tracing, not ported yet (ROADMAP M8): anything but
-        ``None`` raises ``NotImplementedError``.
+      tracer: optional ``repro_torch.obs.Tracer``: the session records a
+        ``device-solve`` span around its run and ``bucket/pad`` spans
+        for every intake (the serving engines hand their own tracer
+        through here). ``None`` records nothing.
       **solver_kw: the kind's static solver knobs (``backend=``,
         ``max_rounds=``, ``device=``, ...), forwarded to the refill
         runtime factory; ``device`` defaults to the card.
@@ -112,14 +115,11 @@ class RefillSolver:
                  mesh_axis: str | None = None, tracer=None, **solver_kw):
         if capacity < 1:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
-        if tracer is not None:
-            raise NotImplementedError(
-                "RefillSolver(tracer=) (span tracing) is not ported yet: "
-                "ROADMAP item M8")
         self.kind = get_kind(kind)
         self.rt = refill_runtime(kind, **solver_kw)
         self.shape = tuple(int(s) for s in shape)
         self.capacity = int(capacity)
+        self.tracer = tracer
         self._solver_kw = dict(solver_kw)
         self._warm_fn = None
         self._lanes = None
@@ -205,6 +205,7 @@ class RefillSolver:
             on failure, reported through ``on_error``)."""
             idx = counters["n_req"]
             counters["n_req"] += 1
+            t0 = time.monotonic() if self.tracer is not None else 0.0
             try:
                 p = self.kind.validate(payload)
                 if not self.fits(p):
@@ -215,6 +216,10 @@ class RefillSolver:
             except Exception as e:
                 _error(idx, e)
                 return None
+            if self.tracer is not None:
+                self.tracer.record("bucket/pad", t0, time.monotonic(),
+                                   kind=self.kind.name, n=1,
+                                   bucket=list(shape))
             problems[idx] = p1
             metas[idx] = (rt.shape_of(p), p)
             return idx
@@ -305,6 +310,11 @@ class RefillSolver:
                 if on_result is not None:
                     on_result(idx, res)
 
-        run_compacted(rt.spec, state, cap, lanes=self._lanes,
-                      refill=_Hook())
+        span = (contextlib.nullcontext() if self.tracer is None else
+                self.tracer.span("device-solve", kind=self.kind.name,
+                                 bucket=list(shape), capacity=cap,
+                                 driver="refill"))
+        with span:
+            run_compacted(rt.spec, state, cap, lanes=self._lanes,
+                          refill=_Hook())
         return results

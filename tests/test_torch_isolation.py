@@ -43,6 +43,8 @@ def test_import_pulls_in_neither_jax_nor_repro():
         "import repro_torch.core.solver_loop\n"
         "import repro_torch.core.warm, repro_torch.checkpoint.store\n"
         "import repro_torch.launch.mesh\n"
+        "import repro_torch.obs, repro_torch.serve.metrics\n"
+        "import repro_torch.serve.scheduler\n"
         "from repro_torch.core.kinds import get_kind, registered_kinds\n"
         "assert get_kind('matching').name == 'matching'\n"
         "assert registered_kinds() == ('maxflow', 'assignment', 'matching')\n"

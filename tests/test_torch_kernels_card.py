@@ -672,6 +672,78 @@ def test_lanes_on_card_equal_no_mesh(cuda_device, kind, kw, kernels):
             _require_same_results(got, want)
 
 
+def _serve_stream(seed):
+    """A small mixed stream, interleaved by kind: 4 grids of 48 x 40, 4
+    weight matrices of 64^2, 4 graphs of 200 x 160 at p = 4 / 160."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(4):
+        out.append(("maxflow", GridProblem(*random_grid_problem(rng, 48, 40))))
+        out.append(("assignment", rng.integers(0, 101, (64, 64))))
+        out.append(("matching", random_bipartite(rng, 200, 160, 4 / 160)))
+    return out
+
+
+_SERVE_KW = {"maxflow": dict(backend="pallas"),
+             "assignment": dict(backend="pallas"),
+             "matching": dict(backend="pallas")}
+
+
+@pytest.mark.parametrize("refill", [False, True])
+def test_async_lanes_on_their_streams_equal_sync_flush(cuda_device, refill):
+    """Two lanes, each on a CUDA stream of its own: 20 runs of the same
+    mixed stream, each future equal to the sync flush leaf for leaf, and
+    the path's kernels launched."""
+    from repro_torch.serve.engine import SolverEngine
+    from repro_torch.serve.scheduler import AsyncSolverEngine
+    stream = _serve_stream(30)
+    sync = SolverEngine(device=cuda_device, solver_kw=_SERVE_KW)
+    tickets = [sync.submit(k, p) for k, p in stream]
+    out = sync.flush()
+    want = [out[t] for t in tickets]
+    kernels = ("grid_push_decide", "bfs_relabel_sweeps", "bidding",
+               "frontier")
+    for _ in range(20):
+        before = {n: _WRAPPERS[n].launches for n in kernels}
+        with AsyncSolverEngine(device=cuda_device, n_lanes=2, max_batch=4,
+                               max_delay_ms=600_000.0, refill=refill,
+                               solver_kw=_SERVE_KW) as eng:
+            streams = [s for lane in eng._lanes for s in lane.streams]
+            assert len(set(streams)) == 2
+            assert torch.cuda.default_stream(cuda_device) not in streams
+            futs = [eng.submit(k, p) for k, p in stream]
+            eng.flush_now()
+            got = [f.result(timeout=120) for f in futs]
+        _require_same_results(got, want)
+        assert all(_WRAPPERS[n].launches > before[n] for n in kernels)
+
+
+@pytest.mark.parametrize("kind,kw,kernels", WARM_PATHS,
+                         ids=lambda v: v if isinstance(v, str) else None)
+def test_traced_solve_on_card_equals_untraced(cuda_device, kind, kw,
+                                              kernels):
+    """A traced flush on each kernel path records the engine's spans and
+    gives the untraced flush's bits, masked and compacted."""
+    from repro_torch.obs import Tracer
+    from repro_torch.serve.engine import SolverEngine
+    bases, _ = _warm_cases(kind, 23)
+    for compact in (False, True):
+        tr = Tracer()
+        got = {}
+        for tracer in (None, tr):
+            before = {n: _WRAPPERS[n].launches for n in kernels}
+            eng = SolverEngine(device=cuda_device, compact=compact,
+                               tracer=tracer, solver_kw={kind: kw})
+            ts = [eng.submit(kind, p) for p in bases]
+            out = eng.flush()
+            got[tracer] = [out[t] for t in ts]
+            assert all(_WRAPPERS[n].launches > before[n] for n in kernels)
+        _require_same_results(got[tr], got[None])
+        names = [s.name for s in tr.spans()]
+        assert names.count("submit") == len(bases)
+        assert "bucket/pad" in names and "device-solve" in names
+
+
 # (B, Sq, Sk, H, KV, dh, dv), causal: the JAX kernel test's five shapes,
 # ragged lengths (tails of both tiles), Sq != Sk, and the widths of the
 # later MLA slice (dh 192, dv 128) and the limit (256)

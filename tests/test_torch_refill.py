@@ -9,8 +9,9 @@ and the JAX package's ``RefillSolver`` and ``solve_batch``, at capacity
 decline is re-offered while anything is live, results arrive in
 convergence order, the ``admit`` contract, a bad admission fails alone,
 that device lanes (ROADMAP M7) and warm seeds and admissions (M6) give
-the closed batch's and ``solve_warm``'s results, and the
-``NotImplementedError`` of span tracing (M8). Tolerance: exact equality.
+the closed batch's and ``solve_warm``'s results, and that a traced
+session (M8) records the reference's spans and gives the untraced bits.
+Tolerance: exact equality.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -29,6 +30,7 @@ from repro_torch.core.kinds import get_kind
 from repro_torch.core.refill import RefillSolver, refill_runtime
 from repro_torch.core.warm import WarmStart, solve_warm
 from repro_torch.launch.mesh import make_solver_mesh
+from repro_torch.obs import Tracer
 
 CPU = "cpu"
 
@@ -221,15 +223,22 @@ def test_bad_admission_fails_alone():
 
 
 def test_unported_options_raise_naming_their_items():
-    # Device lanes (M7) and warm starts (M6) are ported now; the options
-    # that named them are held to the ported behaviour, and span tracing
-    # (M8) still raises naming its item.
+    # The name predates M8: device lanes (M7), warm starts (M6) and span
+    # tracing (M8) are all ported now, and the options that once raised
+    # naming them are held to the ported behaviour.
     rng = np.random.default_rng(8)
     ws = [rng.integers(0, 50, (4, 4)) for _ in range(2)]
-    with pytest.raises(NotImplementedError, match="M8"):
-        RefillSolver("assignment", shape=(4,), capacity=2, tracer=object(),
-                     device=CPU)
     closed = solve_batch("assignment", ws, bucket="max", device=CPU)
+    tr = Tracer()
+    traced = RefillSolver("assignment", shape=(4,), capacity=2, tracer=tr,
+                          device=CPU).run(ws)
+    untraced = RefillSolver("assignment", shape=(4,), capacity=2,
+                            device=CPU).run(ws)
+    for i in range(2):
+        assert_same(traced[i], untraced[i])
+        assert_same(traced[i], closed[i])
+    names = [s.name for s in tr.spans()]
+    assert names == ["bucket/pad", "bucket/pad", "device-solve"]
     got = RefillSolver("assignment", shape=(4,), capacity=2, device=CPU,
                        mesh=make_solver_mesh(2, device=CPU)).run(ws)
     for i in range(2):
