@@ -18,10 +18,11 @@ Drives ``src/repro_torch`` only (no ``jax``, nothing of ``repro``):
    (4 x 4096^2, with ``torch.min`` over a packed key as its yardstick);
    K6 ``flash_attention_fwd`` within 3e-5 (float32) and 2e-2 (bfloat16)
    of its plain version over the JAX kernel test's sweep, tails and head
-   widths off its tiles (``FLASH_TAILS``) and at the serve path's prefill
+   widths off its tiles (``FLASH_TAILS``), at the serve path's prefill
    shape (8 x 1024 tokens, 9 heads over 3 kv heads, dh 64, causal, float32
-   and bfloat16), with ``F.scaled_dot_product_attention`` timed as its
-   yardstick; K4 and K5 are timed once more with the L2 flushed before
+   and bfloat16) and at the MoE serve path's (8 x 1024 tokens, 32 heads
+   over 8 kv heads, dh 128, causal, float32, on ``flash_fwd_mma``), with
+   ``F.scaled_dot_product_attention`` timed as its yardstick at both; K4 and K5 are timed once more with the L2 flushed before
    every call, and K5 also at 3% and 95% of its rows labeled (``[k5]``
    lines: each time against its bound);
 3. drives the grid path, ``maxflow_grid_batch`` on 4 seeded
@@ -125,7 +126,26 @@ Drives ``src/repro_torch`` only (no ``jax``, nothing of ``repro``):
    that solve was never launched, or if K4 or K5 was launched by an
    ``xla`` solve. K3 counts launches (one per call of up to 8 sweeps) and
    sweeps; each grid solve logs both, and K3's device time per launch
-   inside the profiled solve against its bound per call.
+   inside the profiled solve against its bound per call;
+12. drives the MoE serving path (``phase_moe``, ROADMAP M9b.1):
+   phi3.5-moe at full width (d_model 4096, 32 heads over 8 kv heads of
+   128, 16 experts of d_ff 6400, top-2, ``router="flow"``) cut to
+   MOE_LAYERS (2) layers, on ``numpy_params`` weights (seed 0), float32.
+   First the port's ``auction_route`` and ``topk_route`` on the card, on
+   the JAX package's own gate logits of each MoE layer of the prefill and
+   on a seeded skewed score set (the auction raises prices on both), must
+   give the JAX package's dispatch, demand and prices bit for bit and its
+   combine weights within 1e-6 (``tests/torch_smoke_moe.npz``). Then a
+   warm-up and two timed generations of the serve phase's prompts (8 x
+   1024 tokens, 16 new) are held to the JAX package's top-5 per step
+   (``tests/torch_smoke_moe.json``) by ``check_serve``, up to the first
+   step whose routing the JAX side found unstable under float32-sized
+   perturbations (``moe_stops``: none in the committed constants), and
+   the port's dispatch in every MoE layer to JAX's wherever compared; K6
+   must launch once per layer in each prefill, all on ``flash_fwd_mma``,
+   never in a decode step, and no other port kernel may launch. A
+   profiled prefill and decode step give device busy, idle share, the
+   largest device items and their split by kernel name.
 
 Prints one JSON line per kernel summary, the ``nvidia-smi`` name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero
@@ -172,6 +192,26 @@ MATCH_ROUNDS_WANT = (8, 10, 8, 7)
 SERVE_ARCH = "smollm-135m"
 SERVE_B, SERVE_S, SERVE_NEW = 8, 1024, 16
 SERVE_CONSTANTS = ROOT / "tests" / "torch_smoke_serve.json"
+# the MoE serve path: phi3.5-moe at full width cut to MOE_LAYERS layers
+# (its float32 weights, 168 GB at 32 layers, do not fit one card, and the
+# JAX constants are made on a CPU), on SERVE_B x SERVE_S prompts and
+# SERVE_NEW new tokens. The JAX package's top-5 logits per step are in
+# MOE_CONSTANTS; its gate logits, dispatch and routing-stability marks per
+# MoE layer in MOE_ROUTING (`PYTHONPATH=src JAX_PLATFORMS=cpu python
+# tests/torch_smoke_constants.py moe`). A routing decision is unstable when
+# it changes with the scores moved by MOE_PERTURB x the set's largest
+# |score| x N(0, 1) in any of MOE_DRAWS draws: about the gap between cuBLAS
+# and XLA-CPU float32 products. The skewed score set adds a per-expert
+# offset of std MOE_SKEW, on which the auction's price rounds engage
+MOE_ARCH = "phi3.5-moe-42b-a6.6b"
+MOE_LAYERS = 2
+MOE_CONSTANTS = ROOT / "tests" / "torch_smoke_moe.json"
+MOE_ROUTING = ROOT / "tests" / "torch_smoke_moe.npz"
+MOE_PERTURB = 1e-6
+MOE_DRAWS = 4
+MOE_SKEW = 0.5
+# the router's combine weights (softmaxes in [0, 1]) against JAX's
+COMBINE_TOL = 1e-6
 # Each of the port's logits at JAX's top-5 ids must lie within LOGIT_TOL x
 # the step's largest |logit| (JAX's, per request) of JAX's value. Both run
 # in float32 (no TF32) and differ only in summation order (cuBLAS and K6
@@ -856,7 +896,11 @@ def kernels_flash(dev) -> dict:
     cfg = get_config(SERVE_ARCH)
     serve = (SERVE_B, SERVE_S, SERVE_S, cfg.n_heads, cfg.n_kv_heads, cfg.dh,
              cfg.dh)
-    cases = FLASH_SWEEP + FLASH_TAILS + [(serve, True, torch.bfloat16),
+    mcfg = get_config(MOE_ARCH)
+    moe = (SERVE_B, SERVE_S, SERVE_S, mcfg.n_heads, mcfg.n_kv_heads,
+           mcfg.dh, mcfg.dh)
+    cases = FLASH_SWEEP + FLASH_TAILS + [(moe, True, torch.float32),
+                                         (serve, True, torch.bfloat16),
                                          (serve, True, torch.float32)]
     sweep = []
     for dims, causal, dtype in cases:
@@ -873,6 +917,8 @@ def kernels_flash(dev) -> dict:
                           dtype=str(dtype).split(".")[1], max_abs_err=err))
         log(f"[kernels] K6 {dims} causal={causal} {dtype}: max abs err "
             f"{err:.3g} (tolerance {FLASH_TOL[dtype]})")
+        if dims == moe:
+            moe_case = (q, k, v, want, err)
         if dims == serve and dtype == torch.bfloat16:
             bf16 = time_ms(lambda: flash_attention_fwd(q, k, v, causal=True),
                            symbol="flash_fwd_")
@@ -903,7 +949,41 @@ def kernels_flash(dev) -> dict:
                          "flash_fwd_"))
     row["bf16_ms"] = took(row, "bf16_ms", bf16)
     row["library_ms"] = took(row, "library_ms", time_ms(library))
+    row["moe_shape"] = kernels_flash_moe(moe, *moe_case)
     return {"flash_attention_fwd": row}
+
+
+def kernels_flash_moe(dims, q, k, v, want, err) -> dict:
+    """K6 at the MoE serve path's prefill shape (phi3.5-moe: 32 heads over
+    8 kv heads of 128, float32, causal), already held to its plain version
+    in ``kernels_flash``: its launch geometry, device ms, the plain
+    version's and ``F.scaled_dot_product_attention``'s, and its bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_fwd, launch_geometry)
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    geo = launch_geometry(dims[0], dims[1], dims[3], dims[5], dims[6])
+    b = flash_bounds(dims, True, torch.float32)
+    qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+
+    def library():
+        return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                              enable_gqa=True)
+    lib_err = (library().transpose(1, 2) - want).abs().max().item()
+    row = dict(dims=list(dims), max_abs_err=err, bound_ms=b["bound_ms"],
+               bound_by=b["bound_by"], causal_pairs=b["causal_pairs"],
+               **timings(lambda: flash_attention_fwd(q, k, v, causal=True),
+                         lambda: flash_attention_ref(q, k, v, causal=True),
+                         "flash_fwd_"))
+    row["library_ms"] = took(row, "library_ms", time_ms(library))
+    log(f"[kernels] K6 at the MoE prefill shape {dims}: launch {geo}; "
+        f"device {row['ms']:.4f} ms (plain {row['plain_ms']:.4f} ms, "
+        f"scaled_dot_product_attention {row['library_ms']:.4f} ms, max abs "
+        f"diff {lib_err:.3g} from the plain version), bound "
+        f"{b['bound_ms']:.4f} ms by {b['bound_by']} (split TF32), "
+        f"{b['ffma_ms']:.4f} ms at the FFMA rate")
+    return row
 
 
 def timings(kernel, plain, symbol: str) -> dict:
@@ -973,7 +1053,8 @@ def solve(fn, *a, **kw):
     return res, time.perf_counter() - t0
 
 
-def profile(what: str, wall: float, fn, *a, **kw) -> dict:
+def profile(what: str, wall: float, fn, *a, top: int = 8,
+            split: bool = False, **kw) -> dict:
     """One more run of ``fn`` under ``torch.profiler``, tracing the device
     alone: device busy time (the sum of every device op's own time), the
     ops that take most of it, the port's own kernels (their time inside
@@ -998,7 +1079,7 @@ def profile(what: str, wall: float, fn, *a, **kw) -> dict:
     log(f"[profile] {what}: wall {wall:.4f} s unprofiled ({secs:.4f} s "
         f"profiled), device busy {busy:.4f} s, idle share "
         f"{1 - busy / wall:.3f}, {launches} device ops")
-    for us, count, key in rows[:8]:
+    for us, count, key in rows[:top]:
         log(f"[profile]   {us / 1e3:9.3f} ms  {count:6d} x  {key[:90]}")
     port = {}
     for us, count, key in rows:
@@ -1009,9 +1090,13 @@ def profile(what: str, wall: float, fn, *a, **kw) -> dict:
     for name, (ms, count) in port.items():
         log(f"[profile]   port kernel {name}: {ms:.3f} ms over {count} "
             f"launches, {ms / count:.4f} ms each")
-    return dict(busy_s=busy, idle_share=1 - busy / wall, launches=launches,
-                port_kernels=port, gather_scatter_ms=gather_ms,
-                union_s=union)
+    out = dict(busy_s=busy, idle_share=1 - busy / wall, launches=launches,
+               port_kernels=port, gather_scatter_ms=gather_ms, union_s=union)
+    if split:
+        out["split_ms"] = device_split(rows)
+        log(f"[profile]   device ms by kernel name: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in out["split_ms"].items()))
+    return out
 
 
 def check_oracle(res, oracle, what: str, invariant: bool = True):
@@ -2109,6 +2194,29 @@ def top5_records(logits: np.ndarray) -> dict:
             "absmax": np.abs(logits).max(-1).tolist()}
 
 
+def moe_config(cfg):
+    """The MoE serve phase's config: ``cfg`` (either package's phi3.5-moe)
+    at full width, cut to MOE_LAYERS layers."""
+    import dataclasses
+    return dataclasses.replace(cfg, n_layers=MOE_LAYERS)
+
+
+def moe_setup() -> dict:
+    """What the MoE constants were made for."""
+    return dict(arch=MOE_ARCH, n_layers=MOE_LAYERS, B=SERVE_B, S=SERVE_S,
+                max_new=SERVE_NEW, seed=SEED, perturb=MOE_PERTURB,
+                draws=MOE_DRAWS, skew=MOE_SKEW)
+
+
+def moe_skewed_scores(T: int, E: int, seed: int = SEED + 3) -> np.ndarray:
+    """``(T, E)`` float32 N(0, 1) scores plus a per-expert offset of std
+    MOE_SKEW: some experts overflow, so the auction raises prices."""
+    rng = np.random.default_rng(seed)
+    s = rng.standard_normal((T, E), dtype=np.float32)
+    return s + rng.standard_normal((1, E), dtype=np.float32) * np.float32(
+        MOE_SKEW)
+
+
 def port_serve(model, prompts: torch.Tensor, max_new: int, S_max: int):
     """One greedy generation through ``make_prefill_step`` and
     ``make_serve_step``, each step timed and its launch counts read (set
@@ -2143,7 +2251,8 @@ def port_serve(model, prompts: torch.Tensor, max_new: int, S_max: int):
     return steps, t_prefill, t_steps, c_prefill, c_steps, state
 
 
-def check_serve(steps, want: list, tol: float = LOGIT_TOL) -> dict:
+def check_serve(steps, want: list, tol: float = LOGIT_TOL,
+                stop: list | None = None) -> dict:
     """Hold a generation's ``steps`` (``(tokens (B,), logits (B, vocab))``
     per step) to the JAX package's ``top5_records`` per step.
 
@@ -2152,12 +2261,16 @@ def check_serve(steps, want: list, tol: float = LOGIT_TOL) -> dict:
     exceeds that tolerance, the port's token is JAX's first id. At the
     first step where the gap does not (a real near-tie), that request's
     later steps are not compared: its continuation may rightly differ.
-    Returns the steps compared per request, the near-tie steps and the
-    largest error as a share of its tolerance."""
+    ``stop[b]`` (optional) is the first step of request ``b`` not to
+    compare at all (``moe_stops``: a routing decision that float32
+    rounding can flip). Returns the steps compared per request, the
+    near-tie steps and the largest error as a share of its tolerance."""
     B = len(want[0]["ids"])
     compared, ties, worst = [0] * B, [], 0.0
     for b in range(B):
         for t, ((tokens, logits), rec) in enumerate(zip(steps, want)):
+            if stop is not None and t >= stop[b]:
+                break
             ids = np.asarray(rec["ids"][b])
             vals = np.asarray(rec["logits"][b], dtype=np.float64)
             tol_b = tol * rec["absmax"][b]
@@ -2249,6 +2362,254 @@ def phase_serve(dev, counts: dict) -> dict:
     return dict(walls=walls, prefill=pre, decode=dec)
 
 
+@contextlib.contextmanager
+def record_routing():
+    """Wrap the port's MoE routers where ``models.mlp`` calls them: every
+    call appends ``(router name, capacity, dispatch)`` (the dispatch a copy
+    on the device) to the yielded list, in call order."""
+    from repro_torch.models import mlp
+    seen = []
+    originals = {n: getattr(mlp, n) for n in ("auction_route", "topk_route")}
+
+    def spy(name):
+        def route(scores, k, capacity, **kw):
+            r = originals[name](scores, k, capacity, **kw)
+            seen.append((name, capacity, r.dispatch.clone()))
+            return r
+        return route
+    try:
+        for name in originals:
+            setattr(mlp, name, spy(name))
+        yield seen
+    finally:
+        for name, fn in originals.items():
+            setattr(mlp, name, fn)
+
+
+def check_routing(got, want: dict, what: str) -> dict:
+    """A port ``Routing`` against the JAX package's (``want``: its fields
+    as numpy arrays): dispatch and demand equal, prices equal bit for bit,
+    combine within COMBINE_TOL. Returns the tokens routed, the largest
+    price and the combine error."""
+    d = got.dispatch.cpu().numpy()
+    if not np.array_equal(d, want["dispatch"]):
+        raise AssertionError(f"{what}: dispatch differs from the JAX "
+                             f"package's in "
+                             f"{int((d != want['dispatch']).any(-1).sum())} "
+                             f"tokens")
+    if not np.array_equal(got.demand.cpu().numpy(), want["demand"]):
+        raise AssertionError(f"{what}: demand differs")
+    prices = got.prices.cpu().numpy()
+    if not np.array_equal(prices.view(np.int32),
+                          want["prices"].view(np.int32)):
+        raise AssertionError(f"{what}: prices differ by up to "
+                             f"{np.abs(prices - want['prices']).max()}")
+    err = float(np.abs(got.combine.cpu().numpy() - want["combine"]).max())
+    if not err <= COMBINE_TOL:
+        raise AssertionError(f"{what}: combine off by {err} (tolerance "
+                             f"{COMBINE_TOL})")
+    return dict(routed=int(d.sum()), max_price=float(prices.max()),
+                combine_err=err)
+
+
+def moe_routers(dev, cfg, want, card: str) -> dict:
+    """The port's ``auction_route`` and ``topk_route`` on the card, on the
+    JAX package's gate logits of each MoE layer of the prefill and on the
+    skewed score set, at the prefill's capacity, against the JAX
+    package's routing of the same scores (``check_routing``); each router
+    timed once per score set."""
+    from repro_torch.core.routing import auction_route, topk_route
+    e = cfg.moe
+    cap = int(want["capacity"])
+    fields = ("dispatch", "combine", "prices", "demand")
+    sets = [(f"prefill layer {i}", "prefill", i)
+            for i in range(len(want["prefill_scores"]))]
+    sets.append(("skewed", "skewed", ...))
+    out = {}
+    for what, prefix, at in sets:
+        scores = want[f"{prefix}_scores"][at]
+        s = torch.tensor(scores, device=dev)
+        routers = {"auction": lambda: auction_route(
+                       s, e.top_k, cap, n_iters=e.router_iters),
+                   "topk": lambda: topk_route(s, e.top_k, cap)}
+        for name, route in routers.items():
+            res = check_routing(
+                route(), {f: want[f"{prefix}_{name}_{f}"][at] for f in fields},
+                f"{name}_route on {what}")
+            res["ms"] = time_ms(route).ms
+            out[f"{name} {what}"] = res
+            log(f"[moe] {name}_route on the card, {what} "
+                f"{tuple(scores.shape)}, capacity {cap}: equal to the JAX "
+                f"package's (dispatch, demand, prices; combine within "
+                f"{res['combine_err']:.3g}); {res['routed']} routed, prices "
+                f"up to {res['max_price']:.6g}; device {res['ms']:.4f} ms "
+                f"on {card}")
+    return out
+
+
+def moe_stops(want) -> tuple[list, str]:
+    """Per request, the first step not compared with the JAX constants,
+    and why: every step if any MoE layer's routing of the prefill is
+    unstable (capacity couples all tokens, and the caches carry it on),
+    else the first decode step in which that request's routing is
+    unstable in some layer (decode routes each token on its own)."""
+    B = want["decode_unstable"].shape[-1]
+    n_steps = want["decode_unstable"].shape[0] + 1
+    bad = np.flatnonzero(want["prefill_unstable"])
+    if bad.size:
+        return [0] * B, (f"prefill routing unstable at layer {int(bad[0])} "
+                         f"({int(want['prefill_flips'][bad[0]])} tokens move): "
+                         f"nothing compared")
+    stops = []
+    for b in range(B):
+        steps = np.flatnonzero(want["decode_unstable"][:, :, b].any(-1))
+        stops.append(int(steps[0]) + 1 if steps.size else n_steps)
+    why = ", ".join(f"request {b} from step {s}" for b, s in enumerate(stops)
+                    if s < n_steps)
+    return stops, ("decode routing unstable: " + why if why
+                   else "every step's routing stable")
+
+
+def check_moe_dispatch(seen: list, want, compared: list, n_layers: int):
+    """The port's dispatch in each MoE layer of the prefill and of each
+    decode step (``record_routing``) against the JAX package's wherever it
+    was compared: the prefill's layers up to the first unstable one when
+    any request was compared, each decode step of request ``b`` before
+    ``compared[b]``. A difference there fails the run: JAX's routing was
+    stable. Returns the layers and token rows held equal."""
+    if len(seen) != n_layers * (want["decode_dispatch"].shape[0] + 1):
+        raise AssertionError(f"moe: {len(seen)} router calls")
+    rows = 0
+    if max(compared) > 0:
+        for layer in range(n_layers):
+            if want["prefill_unstable"][layer]:
+                break
+            d = seen[layer][2].cpu().numpy()
+            if not np.array_equal(d, want["prefill_dispatch"][layer]):
+                raise AssertionError(f"moe prefill layer {layer}: the port's "
+                                     f"dispatch differs from JAX's stable one")
+            rows += d.shape[-2]
+    for i, (_, _, d) in enumerate(seen[n_layers:]):
+        t, layer = divmod(i, n_layers)
+        d = d.cpu().numpy()
+        for b, n in enumerate(compared):
+            if t + 1 < n:
+                if not np.array_equal(d[..., b, :],
+                                      want["decode_dispatch"][t, layer, ..., b, :]):
+                    raise AssertionError(
+                        f"moe decode step {t + 1} layer {layer} request {b}: "
+                        f"the port's dispatch differs from JAX's stable one")
+                rows += 1
+    return rows
+
+
+def device_split(rows) -> dict:
+    """Device ms of a profile's rows by kernel name: K6 (``flash_fwd_``),
+    matrix products (``gemm``), sorts and top-k (the routers' and the
+    dispatch's), gathers, scatters and indexing (dispatch and combine),
+    and the rest (elementwise, reductions, copies)."""
+    classes = (("K6", ("flash_fwd_",)), ("gemm", ("gemm",)),
+               ("sort/topk", ("sort", "topk", "radix", "bitonic")),
+               ("index/scatter/gather", ("index", "scatter", "gather")))
+    out = {name: 0.0 for name, _ in classes}
+    out["other"] = 0.0
+    for us, _, key in rows:
+        low = key.lower()
+        name = next((n for n, pats in classes
+                     if any(p in low for p in pats)), "other")
+        out[name] += us / 1e3
+    return out
+
+
+def phase_moe(dev, counts: dict, card: str) -> dict:
+    """phi3.5-moe at full width and MOE_LAYERS layers on ``numpy_params``
+    weights: the routers on the card against the JAX package's routing of
+    its own gate logits (``moe_routers``); a warm-up and two timed
+    generations of SERVE_B x SERVE_S prompts and SERVE_NEW tokens, each
+    held to the JAX constants by ``check_serve`` up to ``moe_stops`` and
+    the port's dispatch to JAX's where it was compared
+    (``check_moe_dispatch``); K6 launched once per layer in each prefill,
+    all on ``flash_fwd_mma``, never in decode, and no other port kernel;
+    then one profiled prefill and one profiled decode step."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.interop import model_from_params, numpy_params
+    from repro_torch.models.model import init_caches
+    from repro_torch.serve.engine import make_prefill_step, make_serve_step
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on; the MoE check assumes "
+                             "full float32")
+    want = json.loads(MOE_CONSTANTS.read_text())
+    if {k: want[k] for k in moe_setup()} != moe_setup():
+        raise AssertionError(f"{MOE_CONSTANTS.name} was made for "
+                             f"{ {k: want[k] for k in moe_setup()} }, not "
+                             f"{moe_setup()}")
+    routing = dict(np.load(MOE_ROUTING))
+    cfg = moe_config(get_config(MOE_ARCH))
+    routers = moe_routers(dev, cfg, routing, card)
+
+    t0 = time.perf_counter()
+    params = numpy_params(cfg, SEED)
+    t_numpy = time.perf_counter() - t0
+    model = model_from_params(cfg, params, device=dev)
+    del params
+    n_params = sum(p.numel() for p in model.parameters())
+    prompts = torch.tensor(serve_prompts(cfg.vocab, SERVE_B, SERVE_S),
+                           device=dev)
+    log(f"[moe] {MOE_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.moe.n_experts} experts of {cfg.moe.d_ff_expert}, top "
+        f"{cfg.moe.top_k}, router {cfg.moe.router}: {n_params} parameters "
+        f"on the card ({torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"allocated) in {time.perf_counter() - t0:.1f} s ({t_numpy:.1f} s "
+        f"of it numpy)")
+    stops, why = moe_stops(routing)
+    S_max = SERVE_S + SERVE_NEW
+    walls = []
+    for run in ("warm-up", "run 1", "run 2"):
+        with record_routing() as seen:
+            steps, t_pre, t_steps, c_pre, c_steps, state = port_serve(
+                model, prompts, SERVE_NEW, S_max)
+        got = check_serve(steps, want["steps"], stop=stops)
+        rows = check_moe_dispatch(seen, routing, got["steps_compared"],
+                                  cfg.n_layers)
+        if c_pre["flash_attention_fwd"] != cfg.n_layers:
+            raise AssertionError(f"moe prefill: K6 launched "
+                                 f"{c_pre['flash_attention_fwd']} times, not "
+                                 f"once per layer ({cfg.n_layers})")
+        require_not_launched(c_pre, [n for n in c_pre
+                                     if n != "flash_attention_fwd"],
+                             "moe prefill")
+        for c in c_steps:
+            require_not_launched(c, list(c), "moe decode step")
+        tokens = np.stack([t for t, _ in steps], 1)
+        log(f"[moe] {run}: prefill {t_pre * 1e3:.2f} ms "
+            f"({SERVE_B * SERVE_S / t_pre:.0f} tok/s), decode "
+            f"{np.mean(t_steps) * 1e3:.3f} ms per token step "
+            f"({SERVE_B / np.mean(t_steps):.0f} tok/s); JAX check {got}, "
+            f"stopped where {why}; {rows} routed token rows held to JAX's "
+            f"dispatch; request 0 tokens {tokens[0].tolist()}")
+        if run != "warm-up":
+            walls.append((t_pre, float(np.mean(t_steps))))
+            counts.setdefault("moe_prefill", c_pre)
+            counts.setdefault("moe_decode", {
+                n: sum(c[n] for c in c_steps) for n in c_pre})
+    t_pre = sum(w[0] for w in walls) / len(walls)
+    t_step = sum(w[1] for w in walls) / len(walls)
+    caches = init_caches(cfg, SERVE_B, S_max, dtype=torch.float32,
+                         device=dev)
+    pre = profile("moe prefill 8 x 1024", t_pre, make_prefill_step(model),
+                  prompts, caches, top=16, split=True)
+    k6 = {name: n for name, (_, n) in pre["port_kernels"].items()}
+    if k6 != {"flash_fwd_mma": cfg.n_layers}:
+        raise AssertionError(f"moe prefill: port kernels {k6}, not "
+                             f"{cfg.n_layers} launches of flash_fwd_mma")
+    dec = profile("moe decode step", t_step, make_serve_step(model), state,
+                  top=16, split=True)
+    log(f"[moe] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"GiB; {n_params} parameters; on {card}")
+    return dict(walls=walls, prefill=pre, decode=dec, routers=routers,
+                n_params=n_params, stops=stops, why=why)
+
+
 def nvidia_smi() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2297,6 +2658,13 @@ def main() -> int:
     k6 = serve["prefill"]["port_kernels"]
     kernels["flash_attention_fwd"]["prefill_ms_per_launch"] = (
         sum(ms for ms, _ in k6.values()) / sum(n for _, n in k6.values()))
+    del serve
+    t_moe = time.perf_counter()
+    moe = phase_moe(dev, counts, card)
+    log(f"[moe] done in {time.perf_counter() - t_moe:.1f} s")
+    ms, n = moe["prefill"]["port_kernels"]["flash_fwd_mma"]
+    kernels["flash_attention_fwd"]["moe_shape"].update(
+        prefill_ms_per_launch=ms / n, prefill_launches=n)
     # K1-K3 inside each profiled grid solve, under the wrapper's name
     for name, symbol in (("grid_push_decide", "grid_push_decide_kernel"),
                          ("grid_push_decide_sched",

@@ -24,7 +24,9 @@ Model weights cross the same way:
   same weights;
 * ``load_params`` copies such a tree (numpy or JAX leaves) into the
   port's ``Model``, unstacking ``body`` into per-layer blocks and
-  transposing each ``x @ W`` matrix into its ``nn.Linear``;
+  transposing each ``x @ W`` matrix into its ``nn.Linear`` (an MoE's
+  ``gate`` and ``shared`` MLP too); the MoE's 3-D expert tensors ``w1``,
+  ``w2``, ``w3`` keep the JAX layout and are copied as they are;
   ``model_from_params`` builds the model and loads it.
 
 Imports neither ``jax`` nor ``repro``.
@@ -92,6 +94,32 @@ def to_numpy(tree):
 # Model weights
 # ---------------------------------------------------------------------------
 
+def _mlp_tree(cfg, normal, d_ff: int) -> dict:
+    """``init_mlp``'s leaves: ``w1``, ``w2`` and, gated, ``w3``."""
+    D = cfg.d_model
+    ffn = {"w1": normal((D, d_ff), dense_std(D)),
+           "w2": normal((d_ff, D), depth_scaled_std(d_ff, cfg.n_layers))}
+    if cfg.gated_mlp:
+        ffn["w3"] = normal((D, d_ff), dense_std(D))
+    return ffn
+
+
+def _moe_tree(cfg, normal) -> dict:
+    """``init_moe``'s leaves, with its stds: ``ParamFactory.dense`` takes
+    ``fan_in = shape[0]``, so the expert ``w1`` and ``w3`` ``(E, D, F)``
+    get ``E ** -0.5``."""
+    e, D = cfg.moe, cfg.d_model
+    E, F = e.n_experts, e.d_ff_expert
+    ffn = {"gate": normal((D, E), dense_std(D)),
+           "w1": normal((E, D, F), dense_std(E)),
+           "w2": normal((E, F, D), depth_scaled_std(F, cfg.n_layers))}
+    if cfg.gated_mlp:
+        ffn["w3"] = normal((E, D, F), dense_std(E))
+    if e.n_shared:
+        ffn["shared"] = _mlp_tree(cfg, normal, F * e.n_shared)
+    return ffn
+
+
 def _sublayer_tree(cfg, spec, normal, ones, zeros) -> dict:
     """One sublayer of the JAX params tree (``_init_sublayer``'s keys)."""
     D, H, KV, dh, F = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.dh,
@@ -113,12 +141,9 @@ def _sublayer_tree(cfg, spec, normal, ones, zeros) -> dict:
         mixer["k_g"] = ones((dh,))
     p = {"norm1": norm(), "mixer": mixer}
     if spec[1]:
-        ffn = {"w1": normal((D, F), dense_std(D)),
-               "w2": normal((F, D), depth_scaled_std(F, cfg.n_layers))}
-        if cfg.gated_mlp:
-            ffn["w3"] = normal((D, F), dense_std(D))
         p["norm2"] = norm()
-        p["ffn"] = ffn
+        p["ffn"] = (_moe_tree(cfg, normal) if spec[1] == "moe"
+                    else _mlp_tree(cfg, normal, F))
     return p
 
 
@@ -136,8 +161,9 @@ def numpy_params(cfg, seed: int = 0) -> dict:
 
     def maker(lead):
         def normal(shape, std):
-            return (rng.standard_normal(lead + shape, dtype=np.float32)
-                    * np.float32(std))
+            x = rng.standard_normal(lead + shape, dtype=np.float32)
+            x *= np.float32(std)
+            return x
         return (normal, lambda shape: np.ones(lead + shape, np.float32),
                 lambda shape: np.zeros(lead + shape, np.float32))
 
@@ -166,18 +192,40 @@ def _vector(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, copy=True))
 
 
+def _linears(prefix: str, tree: dict) -> dict:
+    """x @ W in JAX, W.T in nn.Linear."""
+    return {f"{prefix}.{k}.weight": _matrix(x) for k, x in tree.items()}
+
+
 def _sublayer_state(prefix: str, tree: dict) -> dict:
     sd = {}
     for norm in ("norm1", "norm2"):
         for k, x in tree.get(norm, {}).items():
             sd[f"{prefix}.{norm}.{k}"] = _vector(x)
-    for part in ("mixer", "ffn"):
-        for k, x in tree.get(part, {}).items():
-            if k in ("q_g", "k_g"):
-                sd[f"{prefix}.{part}.{k}"] = _vector(x)
-            else:   # x @ W in JAX, W.T in nn.Linear
-                sd[f"{prefix}.{part}.{k}.weight"] = _matrix(x)
+    for k, x in tree["mixer"].items():
+        if k in ("q_g", "k_g"):
+            sd[f"{prefix}.mixer.{k}"] = _vector(x)
+        else:
+            sd[f"{prefix}.mixer.{k}.weight"] = _matrix(x)
+    ffn = tree.get("ffn", {})
+    if "gate" in ffn:       # MoE: only the gate and shared MLP transpose
+        sd[f"{prefix}.ffn.gate.weight"] = _matrix(ffn["gate"])
+        for k in ("w1", "w2", "w3"):
+            if k in ffn:    # (E, D, F) / (E, F, D), the JAX layout
+                sd[f"{prefix}.ffn.{k}"] = torch.from_numpy(
+                    np.require(ffn[k], requirements=["C", "W"]))
+        if "shared" in ffn:
+            sd.update(_linears(f"{prefix}.ffn.shared", ffn["shared"]))
+    else:
+        sd.update(_linears(f"{prefix}.ffn", ffn))
     return sd
+
+
+def _at(tree, r: int):
+    """Index ``r`` of every leaf's leading axis, nested dicts kept."""
+    if isinstance(tree, dict):
+        return {k: _at(x, r) for k, x in tree.items()}
+    return np.asarray(tree)[r]
 
 
 def load_params(model: Model, params: dict) -> Model:
@@ -192,15 +240,10 @@ def load_params(model: Model, params: dict) -> Model:
     for i, tree in enumerate(params["prefix"]):
         sd.update(_sublayer_state(f"layers.{i}", tree))
     n_periods = (cfg.n_layers - n_pre) // period
-    body = [{part: {k: np.asarray(x) for k, x in sub.items()}
-             for part, sub in params["body"][f"sub{j}"].items()}
-            for j in range(period)]
     for r in range(n_periods):
-        for j, tree in enumerate(body):
-            at_r = {part: {k: x[r] for k, x in sub.items()}
-                    for part, sub in tree.items()}
+        for j in range(period):
             sd.update(_sublayer_state(f"layers.{n_pre + r * period + j}",
-                                      at_r))
+                                      _at(params["body"][f"sub{j}"], r)))
     for k, x in params["final_norm"].items():
         sd[f"final_norm.{k}"] = _vector(x)
     if "lm_head" in params:

@@ -4,16 +4,22 @@
       --batch 8 --prompt-len 1024 --max-new 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
       --smoke --batch 2 --prompt-len 8 --max-new 4 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch phi3.5-moe-42b-a6.6b --n-layers 2 --batch 8 --prompt-len 1024
 
 Counterpart of ``repro/launch/serve.py``: random weights and prompts from
 ``--seed`` (torch generators, so not the JAX CLI's numbers), the same
 three report lines. Runs on the card unless ``--device cpu`` is given;
 there is no mesh, so the JAX CLI's ``--model-parallel`` has no
-counterpart. The first prefill includes building the kernels.
+counterpart, and one card holds a large model only with its depth cut:
+``--n-layers`` keeps the config's widths and takes that many layers
+(phi3.5-moe's 32 float32 layers need 168 GB). The first prefill includes
+building the kernels.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import torch
@@ -38,11 +44,15 @@ def main(argv=None) -> None:
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="cut the depth to this many layers")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_variant(cfg)
+    if args.n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
     if cfg.family == "encoder":
         raise SystemExit("encoder archs have no decode path")
 

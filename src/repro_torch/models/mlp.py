@@ -1,26 +1,34 @@
-"""MLPs: dense (SwiGLU / squared-ReLU / GELU).
+"""MLPs: dense (SwiGLU / squared-ReLU / GELU) and MoE with flow routing.
 
-Counterpart of ``repro/models/mlp.py``, its dense half. The MoE layer
-(``init_moe``, ``moe_apply``) and the routers of ``core/routing.py`` it
-needs wait for ROADMAP M9 and raise.
+Counterpart of ``repro/models/mlp.py``. The MoE layer is where the
+paper's technique is a first-class feature: ``cfg.moe.router == "flow"``
+routes tokens with the capacity-constrained eps-auction of
+``repro_torch.core.routing`` (the assignment problem of section 5 solved
+inside every MoE layer), ``"topk"`` is the standard baseline.
+
+Dispatch is sort-based (a stable sort by expert id, then capacity slots),
+as in the reference. One card has no mesh, so every layer routes its
+tokens as one group (the JAX ``Sharder().data_groups``). The expert
+products are batched matrix products (``torch.bmm``), as the reference's
+``einsum``s are plain XLA ops and no Pallas kernel.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from repro_torch.core.routing import auction_route, topk_route
 from repro_torch.models.layers import (ACTIVATIONS, dense_std,
                                        depth_scaled_std, linear, normal_)
 
-NOT_PORTED = "not ported yet (ROADMAP M9: MoE with core/routing.py)"
-
 
 class MLP(nn.Module):
-    """``w1``, ``w2`` and, gated, ``w3`` (bias-free ``nn.Linear``)."""
+    """``w1``, ``w2`` and, gated, ``w3`` (bias-free ``nn.Linear``); hidden
+    width ``d_ff`` (default ``cfg.d_ff``)."""
 
-    def __init__(self, cfg, device=None, dtype=None):
+    def __init__(self, cfg, device=None, dtype=None, d_ff: int | None = None):
         super().__init__()
-        D, F = cfg.d_model, cfg.d_ff
+        D, F = cfg.d_model, d_ff or cfg.d_ff
         self.cfg = cfg
         self.w1 = linear(D, F, device, dtype)
         self.w2 = linear(F, D, device, dtype)
@@ -49,9 +57,155 @@ def mlp_apply(p: MLP, x, cfg):
     return p.w2(h)
 
 
-def init_moe(*args, **kwargs):
-    raise NotImplementedError(NOT_PORTED)
+# ---------------------------------------------------------------------------
+# MoE
+# ---------------------------------------------------------------------------
+
+class MoE(nn.Module):
+    """The MoE layer's parameters: ``gate`` (bias-free ``nn.Linear(D, E)``),
+    the expert tensors ``w1``, ``w3`` ``(E, D, F)`` and ``w2`` ``(E, F, D)``
+    in the JAX layout, and, with ``n_shared``, the ``shared`` MLP of width
+    ``F * n_shared``."""
+
+    def __init__(self, cfg, device=None, dtype=None):
+        super().__init__()
+        e, D = cfg.moe, cfg.d_model
+        E, F = e.n_experts, e.d_ff_expert
+        self.cfg = cfg
+        self.gate = linear(D, E, device, dtype)
+
+        def experts(*shape):
+            return nn.Parameter(torch.empty(shape, device=device,
+                                            dtype=dtype))
+        self.w1 = experts(E, D, F)
+        self.w2 = experts(E, F, D)
+        if cfg.gated_mlp:
+            self.w3 = experts(E, D, F)
+        if e.n_shared:
+            self.shared = MLP(cfg, device, dtype, d_ff=F * e.n_shared)
+
+    def forward(self, x, decode: bool = False):
+        return moe_apply(self, x, self.cfg, decode=decode)
 
 
-def moe_apply(*args, **kwargs):
-    raise NotImplementedError(NOT_PORTED)
+def init_moe(p: MoE, generator: torch.Generator) -> MoE:
+    """Draw ``p``'s weights with the JAX ``init_moe``'s stds: ``gate``
+    ``d_model ** -0.5``; ``w1`` and ``w3`` ``n_experts ** -0.5``, since
+    the reference's ``ParamFactory.dense`` takes ``fan_in = shape[0]``,
+    the expert axis; ``w2`` ``d_ff_expert ** -0.5`` depth-scaled."""
+    e, cfg = p.cfg.moe, p.cfg
+    normal_(p.gate.weight, dense_std(cfg.d_model), generator)
+    normal_(p.w1, dense_std(e.n_experts), generator)
+    normal_(p.w2, depth_scaled_std(e.d_ff_expert, cfg.n_layers), generator)
+    if cfg.gated_mlp:
+        normal_(p.w3, dense_std(e.n_experts), generator)
+    if e.n_shared:
+        init_mlp(p.shared, generator)
+    return p
+
+
+def _expert_ffn(buf, p: MoE, cfg):
+    """buf: (E, C, D) -> (E, C, D); one batched product per weight."""
+    h = ACTIVATIONS[cfg.mlp_act](torch.bmm(buf, p.w1))
+    if cfg.gated_mlp:
+        h = h * torch.bmm(buf, p.w3)
+    return torch.bmm(h, p.w2)
+
+
+def _dispatch_group(xt, disp, combine_logits, p: MoE, cfg, *, k: int,
+                    capacity: int):
+    """Dispatch, expert FFN and combine for ONE token group.
+
+    ``xt`` (T, D) tokens, ``disp`` (T, E) the router's decisions,
+    ``combine_logits`` (T, E) the unrouted gate logits, whose softmax
+    masked by ``disp`` weighs each expert's output (as the reference; the
+    router's ``combine`` is not used). Each token's (at most k) experts
+    are sorted stably by id and take capacity slots in token order; what
+    is past an expert's capacity is dropped. Capacity slots live in an
+    ``(E + 1, C, D)`` buffer whose last expert row takes the dropped
+    writes, so no index is out of bounds.
+    """
+    T, D = xt.shape
+    E = cfg.moe.n_experts
+    dev = xt.device
+    gates = torch.softmax(torch.where(disp, combine_logits, -1e9), dim=-1)
+    combine = torch.where(disp, gates, 0.0).to(xt.dtype)
+
+    choice_e = torch.where(disp, torch.arange(E, device=dev), E)
+    flat_e = torch.sort(choice_e, dim=-1).values[:, :k].reshape(-1)  # or E
+    flat_t = torch.arange(T, device=dev).repeat_interleave(k)
+    order = torch.argsort(flat_e, stable=True)
+    se, st = flat_e[order], flat_t[order]
+    starts = torch.searchsorted(se, torch.arange(E + 1, device=dev))
+    pos = torch.arange(T * k, device=dev) - starts[se]
+    ok = (se < E) & (pos < capacity)
+    se_c = torch.where(ok, se, E)                       # dropped -> row E
+    pos_c = torch.where(ok, pos, 0)
+
+    buf = xt.new_zeros((E + 1, capacity, D))
+    buf[se_c, pos_c] = xt[st]
+    out_buf = _expert_ffn(buf[:E], p, cfg)
+
+    keep = se_c.clamp(max=E - 1)                        # read in bounds
+    gathered = out_buf[keep, pos_c]                     # (T*k, D)
+    wts = torch.gather(combine[st], 1, keep[:, None])
+    contrib = torch.where(ok[:, None], gathered * wts, 0.0)
+    return xt.new_zeros((T, D)).index_add_(0, st, contrib)
+
+
+def moe_capacity(cfg, n_tokens: int, decode: bool) -> int:
+    """Tokens per expert in one group of ``n_tokens``: all of them in
+    decode, else ``int(T * k / E * capacity_factor)`` clipped to [1, T]."""
+    e = cfg.moe
+    if decode:
+        return n_tokens
+    return min(max(1, int(n_tokens * e.top_k / e.n_experts
+                          * e.capacity_factor)), n_tokens)
+
+
+def moe_apply(p: MoE, x, cfg, decode: bool = False):
+    """x: (B, S, D) -> (B, S, D). Capacity-padded dispatch of one group.
+
+    decode=True routes plain top-k with capacity == T (no truncation):
+    capacity coupling across tokens would make decode disagree with the
+    batched forward pass. Otherwise ``router="flow"`` routes with
+    ``auction_route`` and ``"topk"`` with ``topk_route``, at
+    ``moe_capacity``.
+    """
+    e = cfg.moe
+    B, S, D = x.shape
+    G, Tg = 1, B * S
+    k = e.top_k
+    capacity = moe_capacity(cfg, Tg, decode)
+
+    xt = x.reshape(G, Tg, D)
+    logits = p.gate(xt).float()                          # (G, Tg, E)
+    # every group's routing problem at once (the routers are
+    # batch-polymorphic over the leading group axis)
+    if e.router == "flow" and not decode:
+        routing = auction_route(logits, k, capacity, n_iters=e.router_iters)
+    else:
+        routing = topk_route(logits, k, capacity)
+
+    out = torch.stack([
+        _dispatch_group(xt[g], routing.dispatch[g], logits[g], p, cfg, k=k,
+                        capacity=capacity) for g in range(G)])
+    if e.n_shared:
+        out = out + mlp_apply(p.shared, xt, cfg)
+    return out.reshape(B, S, D)
+
+
+def moe_aux_metrics(p: MoE, x, cfg) -> dict:
+    """Load-balance diagnostics for benchmarks (not used in any loss):
+    ``max_load``, ``routed`` (int32) and ``load_cv`` (float32)."""
+    e = cfg.moe
+    T = x.shape[0] * x.shape[1]
+    logits = p.gate(x.reshape(T, -1)).float()
+    capacity = max(1, int(T * e.top_k / e.n_experts * e.capacity_factor))
+    r = (auction_route(logits, e.top_k, capacity) if e.router == "flow"
+         else topk_route(logits, e.top_k, capacity))
+    load = r.demand / torch.clamp_min(r.demand.sum(), 1)
+    return {"max_load": r.demand.max(),
+            "routed": r.dispatch.sum(dtype=torch.int32),
+            "load_cv": load.std(correction=0)
+            / torch.clamp_min(load.mean(), 1e-9)}

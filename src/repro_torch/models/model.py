@@ -11,10 +11,12 @@ JAX package's ``prefix[i]`` for ``i < n_dense_prefix`` and otherwise
 port has none.
 
 Runs the dense and token-input families (smollm-135m, chameleon-34b,
-command-r-plus-104b, minitron-8b, nemotron-4-340b). MoE, mamba, the
-hybrid and encoder stacks, MLA, input frontends and the int8 cache wait
-for ROADMAP M9: ``check_supported`` raises ``NotImplementedError`` for
-them.
+command-r-plus-104b, minitron-8b, nemotron-4-340b) and the MoE family
+(phi3.5-moe): where the layer plan says ``"moe"`` the block's FFN is a
+``models.mlp.MoE``, routed by the auction (``router="flow"``) or top-k in
+prefill and by top-k in decode, as the reference. Mamba, the hybrid and
+encoder stacks, MLA, input frontends and the int8 cache wait for ROADMAP
+M9: ``check_supported`` raises ``NotImplementedError`` for them.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import GQA, KVCache, init_gqa
 from repro_torch.models.layers import Norm, dense_std, linear, normal_
-from repro_torch.models.mlp import MLP, init_mlp
+from repro_torch.models.mlp import MLP, MoE, init_mlp, init_moe
 
 
 # ---------------------------------------------------------------------------
@@ -71,8 +73,6 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.family in ("ssm", "hybrid") or any(
             m == "mamba" for m, _ in layer_plan(cfg)):
         missing.append("mamba (SSD) layers")
-    if cfg.moe is not None:
-        missing.append("MoE with core/routing.py")
     if cfg.family == "encoder" or not cfg.causal:
         missing.append("the encoder stack")
     if cfg.frontend_dim:
@@ -92,7 +92,8 @@ def check_supported(cfg: ModelConfig) -> None:
 
 class Block(nn.Module):
     """One layer: ``norm1`` -> GQA ``mixer`` -> residual, then (where the
-    plan has an FFN) ``norm2`` -> ``ffn`` -> residual."""
+    plan has an FFN) ``norm2`` -> ``ffn`` (an ``MLP``, or a ``MoE`` where
+    the plan says ``"moe"``) -> residual."""
 
     def __init__(self, cfg: ModelConfig, spec, device=None, dtype=None):
         super().__init__()
@@ -101,13 +102,16 @@ class Block(nn.Module):
         self.mixer = GQA(cfg, device, dtype)
         if ffn:
             self.norm2 = Norm(cfg.d_model, cfg.norm, device, dtype)
-            self.ffn = MLP(cfg, device=device, dtype=dtype)
+            self.ffn = (MoE if ffn == "moe" else MLP)(cfg, device=device,
+                                                      dtype=dtype)
 
     def forward(self, x, *, positions, cache, decode: bool):
         mo, new_cache = self.mixer(self.norm1(x), positions=positions,
                                    cache=cache, decode=decode)
         x = x + mo
-        if hasattr(self, "ffn"):
+        if isinstance(getattr(self, "ffn", None), MoE):
+            x = x + self.ffn(self.norm2(x), decode=decode)
+        elif hasattr(self, "ffn"):
             x = x + self.ffn(self.norm2(x))
         return x, new_cache
 
@@ -141,14 +145,16 @@ def init_model(cfg: ModelConfig, generator: torch.Generator, *, device=None,
     """A model with random weights drawn from ``generator``: the JAX
     ``init_model``'s standard deviations (``fan_in ** -0.5``; the embedding
     ``d_model ** -0.5``; ``wo`` and ``w2`` depth-scaled; norm gains 1 and
-    biases 0). Runs on ``device`` (default cuda); the generator may live
+    biases 0; the MoE's as ``init_moe`` says). Runs on ``device`` (default cuda); the generator may live
     on the CPU."""
     model = Model(cfg, device=device, dtype=dtype)
     # d^-0.5 embedding scale keeps tied-head logits ~N(0,1) at init
     normal_(model.embed, cfg.d_model ** -0.5, generator)
     for block in model.layers:
         init_gqa(block.mixer, generator)
-        if hasattr(block, "ffn"):
+        if isinstance(getattr(block, "ffn", None), MoE):
+            init_moe(block.ffn, generator)
+        elif hasattr(block, "ffn"):
             init_mlp(block.ffn, generator)
     if not cfg.tie_embeddings:
         normal_(model.lm_head.weight, dense_std(cfg.d_model), generator)

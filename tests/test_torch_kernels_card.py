@@ -24,6 +24,7 @@ from repro_torch.core.matching import match_bipartite_batch
 from repro_torch.core.matching.ref import hopcroft_karp, random_bipartite
 from repro_torch.core.maxflow.grid import (INF_H, GridProblem,
                                            maxflow_grid_batch)
+from repro_torch.core.routing import auction_route, exact_route, topk_route
 from repro_torch.core.maxflow.ref import (checkerboard_problem,
                                           long_path_problem,
                                           maxflow_grid_ref,
@@ -895,3 +896,45 @@ def test_serve_on_card_close_to_cpu(cuda_device):
     (a, ta), (b, tb) = outs["cuda"], outs["cpu"]
     assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
     assert torch.equal(ta, tb)
+
+
+# MoE routers: (shape, per-expert offset std, capacity, ties) -- the
+# smoke's prefill shape skewed so that the auction raises prices, leading
+# group axes, capacity at T, and scores full of exact ties
+ROUTER_CASES = [((8192, 16), 0.5, 1280, False), ((3, 512, 16), 0.5, 80, False),
+                ((2, 300, 8), 0.0, 300, False), ((4, 64, 8), 0.0, 12, True)]
+
+
+@pytest.mark.parametrize("router", ["auction", "topk"])
+@pytest.mark.parametrize("shape,skew,cap,ties", ROUTER_CASES, ids=str)
+def test_routers_on_card_equal_cpu(cuda_device, router, shape, skew, cap,
+                                   ties):
+    """``auction_route`` and ``topk_route`` on the card give the CPU's
+    dispatch, demand and prices bit for bit on the same scores, and its
+    combine weights within 1e-6."""
+    rng = np.random.default_rng(len(shape) + cap)
+    if ties:
+        s = rng.integers(-2, 3, shape).astype(np.float32) * 0.5
+        s[..., ::3, 1] = -0.0
+    else:
+        s = rng.standard_normal(shape, dtype=np.float32)
+        s += rng.standard_normal(shape[:-2] + (1, shape[-1]),
+                                 dtype=np.float32) * np.float32(skew)
+    route = {"auction": auction_route, "topk": topk_route}[router]
+    got = route(torch.tensor(s, device=cuda_device), 2, cap)
+    want = route(torch.tensor(s), 2, cap)
+    assert all(x.device.type == "cuda" for x in got)
+    assert torch.equal(got.dispatch.cpu(), want.dispatch)
+    assert torch.equal(got.demand.cpu(), want.demand)
+    assert bits_equal(got.prices.cpu(), want.prices)
+    assert (got.combine.cpu() - want.combine).abs().max().item() <= 1e-6
+    if router == "auction" and skew and cap < shape[-2]:
+        assert want.prices.max() > 0             # the price rounds engaged
+
+
+def test_exact_route_on_card_equals_cpu(cuda_device):
+    s = np.random.default_rng(0).standard_normal((2, 64, 8), dtype=np.float32)
+    got = exact_route(torch.tensor(s, device=cuda_device), 8)
+    want = exact_route(torch.tensor(s), 8)
+    assert torch.equal(got.dispatch.cpu(), want.dispatch)
+    assert bits_equal(got.prices.cpu(), want.prices)

@@ -1,4 +1,5 @@
-"""The port's configs, layers and dense GQA model against the JAX package.
+"""The port's configs, layers, dense GQA and MoE models against the JAX
+package.
 
 Configs are pure data and must be equal. Weights cross from the JAX
 layout (``repro_torch.interop``): the same ``numpy_params`` tree goes into
@@ -6,7 +7,8 @@ the JAX ``apply_model`` (with ``Sharder()``, no mesh) and the port's. Both
 run float32 on the CPU and differ only in summation order, which at smoke
 size moves logits by about 1e-6 of their largest magnitude. Tolerance:
 ``LOGIT_TOL`` x the largest |logit| (absolute), ``1e-5`` for the
-building blocks.
+building blocks. The MoE layer is held to ``MOE_TOL`` x its largest
+|output|, and its routers' dispatch to the JAX package's exactly.
 """
 import dataclasses
 
@@ -26,16 +28,20 @@ from repro_torch.configs.base import get_config, list_configs, smoke_variant
 from repro_torch.interop import load_params, model_from_params, numpy_params
 from repro_torch.models import layers as tlayers
 from repro_torch.models import model as tmodel
+from repro.models import mlp as jmlp
+from repro_torch.core.routing import auction_route, topk_route
+from repro_torch.models import mlp as tmlp
 from repro_torch.models.attention import KVCache, init_mla, mla_apply
-from repro_torch.models.mlp import init_moe, moe_apply
+from repro_torch.models.mlp import MoE, init_moe, moe_apply
 
 LOGIT_TOL = 1e-5
 BLOCK_TOL = 1e-5
+MOE_TOL = 1e-5
+PHI = "phi3.5-moe-42b-a6.6b"
 RUNNABLE = ["chameleon-34b", "command-r-plus-104b", "minitron-8b",
-            "nemotron-4-340b", "smollm-135m"]
-UNPORTED = {"deepseek-v2-236b": "MoE", "hubert-xlarge": "encoder",
-            "jamba-v0.1-52b": "mamba", "mamba2-370m": "mamba",
-            "phi3.5-moe-42b-a6.6b": "MoE"}
+            "nemotron-4-340b", PHI, "smollm-135m"]
+UNPORTED = {"deepseek-v2-236b": "MLA", "hubert-xlarge": "encoder",
+            "jamba-v0.1-52b": "mamba", "mamba2-370m": "mamba"}
 
 
 def _cfgs(arch):
@@ -76,9 +82,18 @@ def test_config_and_plan_equal_jax(arch):
         assert tmodel.plan_period(a) == jmodel.plan_period(b)
 
 
-@pytest.mark.parametrize("arch", sorted(UNPORTED))
+@pytest.mark.parametrize("arch", sorted([*UNPORTED, PHI]))
 def test_unported_family_raises(arch):
-    cfg, _ = _cfgs(arch)
+    """Each family the port lacks raises naming what it lacks; phi3.5-moe,
+    which the port now runs, builds and gets the JAX params tree."""
+    cfg, jcfg = _cfgs(arch)
+    if arch == PHI:
+        model = tmodel.init_model(cfg, torch.Generator(), device="cpu")
+        assert all(isinstance(b.ffn, MoE) for b in model.layers)
+        theirs = jmodel.init_model(jcfg, jax.random.PRNGKey(0))[0]
+        assert (jax.tree.structure(numpy_params(cfg))
+                == jax.tree.structure(theirs))
+        return
     with pytest.raises(NotImplementedError,
                        match=f"{UNPORTED[arch]}.*ROADMAP M9"):
         tmodel.init_model(cfg, torch.Generator(), device="cpu")
@@ -90,7 +105,7 @@ def test_unported_pieces_raise():
     cfg = dataclasses.replace(_cfgs("smollm-135m")[0], kv_quant=True)
     with pytest.raises(NotImplementedError, match="int8 KV cache"):
         tmodel.Model(cfg, device="cpu")
-    for fn in (init_mla, mla_apply, init_moe, moe_apply):
+    for fn in (init_mla, mla_apply):
         with pytest.raises(NotImplementedError, match="ROADMAP M9"):
             fn()
 
@@ -179,8 +194,11 @@ def test_init_model_shapes_and_stds_match_jax(arch):
         if t.numel() >= 4096:
             assert abs(t.std().item() / ref[name].std().item() - 1) < 0.1, \
                 name
-        else:
-            assert torch.equal(t, ref[name]), name
+        elif torch.all(ref[name] == ref[name].flatten()[0]):
+            assert torch.equal(t, ref[name]), name      # ones, zeros
+        else:       # a small random tensor (an MoE gate): its spread
+            assert abs(t.std().item() / ref[name].std().item() - 1) < 0.25, \
+                name
 
 
 # ---------------------------------------------------------------------------
@@ -244,3 +262,99 @@ def test_prefill_then_decode_step_match_jax(arch):
     for field in ("k", "v"):
         got = np.stack([getattr(c, field).numpy() for c in dec.caches])
         _close(got, getattr(jdec.caches["body"][0], field), field)
+
+
+# ---------------------------------------------------------------------------
+# The MoE layer
+# ---------------------------------------------------------------------------
+
+def _pairs(tree):
+    """A params tree as the JAX modules take it: ``(array,)`` leaves
+    (``p["w1"][0]``)."""
+    if isinstance(tree, dict):
+        return {k: _pairs(x) for k, x in tree.items()}
+    return (jnp.asarray(tree),)
+
+
+def _moe_case(router, cf, n_shared):
+    cfg, jcfg = _cfgs(PHI)
+    moe = dataclasses.replace(cfg.moe, router=router, capacity_factor=cf,
+                              n_shared=n_shared)
+    cfg = dataclasses.replace(cfg, moe=moe)
+    jcfg = dataclasses.replace(jcfg, moe=dataclasses.replace(
+        jcfg.moe, **dataclasses.asdict(moe)))
+    params = numpy_params(cfg, seed=3)
+    tree = {k: x[0] if not isinstance(x, dict)
+            else {kk: xx[0] for kk, xx in x.items()}
+            for k, x in params["body"]["sub0"]["ffn"].items()}
+    layer = tmodel.Model(cfg, device="cpu")
+    load_params(layer, params)
+    return cfg, jcfg, tree, layer.layers[0].ffn
+
+
+@pytest.mark.parametrize("n_shared", [0, 1])
+@pytest.mark.parametrize("decode", [False, True])
+@pytest.mark.parametrize("cf", [2.5, 1.0])
+@pytest.mark.parametrize("router", ["flow", "topk"])
+def test_moe_apply_matches_jax(router, cf, decode, n_shared):
+    """``moe_apply`` against the JAX ``moe_apply`` on the same layer
+    weights and inputs, and the router each runs (auction for flow in
+    prefill, top-k otherwise, at the same capacity) with equal dispatch.
+    Capacity factor 1.0 makes the auction raise prices at this size;
+    the smoke variant's 2.5 gives capacity >= T."""
+    cfg, jcfg, tree, moe = _moe_case(router, cf, n_shared)
+    x = np.random.default_rng(4).normal(size=(2, 16, cfg.d_model)).astype(
+        np.float32)
+    want = jmlp.moe_apply(_pairs(tree), jnp.asarray(x), jcfg, Sharder(),
+                          decode=decode)
+    with torch.no_grad():
+        got = moe_apply(moe, torch.tensor(x), cfg, decode=decode)
+        logits = moe.gate(torch.tensor(x).reshape(1, 32, -1)).float()
+    jlogits = (jnp.asarray(x).reshape(1, 32, -1) @ tree["gate"]).astype(
+        jnp.float32)
+    T, E, k = 32, cfg.moe.n_experts, cfg.moe.top_k
+    cap = tmlp.moe_capacity(cfg, T, decode)
+    assert cap == (T if decode else min(int(T * k / E * cf), T))
+    if router == "flow" and not decode:
+        r = auction_route(logits, k, cap, n_iters=cfg.moe.router_iters)
+        jrt = jmlp.auction_route(jlogits, k, cap,
+                                 n_iters=cfg.moe.router_iters)
+        assert bool(r.prices.any()) == (cf == 1.0)   # prices engaged
+    else:
+        r, jrt = topk_route(logits, k, cap), jmlp.topk_route(jlogits, k, cap)
+    assert np.array_equal(r.dispatch.numpy(), np.asarray(jrt.dispatch))
+    want = np.asarray(want)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=MOE_TOL * np.abs(want).max())
+
+
+def test_moe_aux_metrics_match_jax():
+    cfg, jcfg, tree, moe = _moe_case("flow", 1.0, 0)
+    x = np.random.default_rng(5).normal(size=(2, 16, cfg.d_model)).astype(
+        np.float32)
+    want = jmlp.moe_aux_metrics(_pairs(tree), jnp.asarray(x), jcfg)
+    with torch.no_grad():
+        got = tmlp.moe_aux_metrics(moe, torch.tensor(x), cfg)
+    assert int(got["max_load"]) == int(want["max_load"])
+    assert int(got["routed"]) == int(want["routed"])
+    np.testing.assert_allclose(float(got["load_cv"]), float(want["load_cv"]),
+                               rtol=1e-5)
+
+
+def test_moe_drops_past_capacity_and_keeps_the_rest():
+    """At capacity 1 per expert most of the tokens' picks are dropped, and
+    a dropped token's output is exactly 0 (JAX's too)."""
+    cfg, jcfg, tree, moe = _moe_case("topk", 0.1, 0)
+    x = np.random.default_rng(6).normal(size=(1, 32, cfg.d_model)).astype(
+        np.float32)
+    assert tmlp.moe_capacity(cfg, 32, False) == 1
+    want = np.asarray(jmlp.moe_apply(_pairs(tree), jnp.asarray(x), jcfg,
+                                     Sharder()))
+    with torch.no_grad():
+        got = moe_apply(moe, torch.tensor(x), cfg).numpy()
+    zero = np.all(want == 0, axis=-1)
+    assert zero.sum() >= 32 - cfg.moe.n_experts
+    assert np.array_equal(np.all(got == 0, axis=-1), zero)
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=MOE_TOL * np.abs(want).max())

@@ -9,6 +9,7 @@ largest logit at this size. The JAX side steps with
 ``torch_smoke_constants.jax_generate``, which must give the JAX
 ``greedy_generate``'s tokens.
 """
+import json
 import pathlib
 import subprocess
 import sys
@@ -29,12 +30,13 @@ from repro.serve.engine import greedy_generate as jax_greedy_generate
 from repro_torch.configs.base import get_config, smoke_variant
 from repro_torch.interop import model_from_params, numpy_params
 from repro_torch.kernels.flash_attention import kernel as fak
+from repro_torch.models.mlp import moe_capacity
 from repro_torch.serve.engine import greedy_generate
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SERVE_TOL = 1e-5
 RUNNABLE = ["chameleon-34b", "command-r-plus-104b", "minitron-8b",
-            "nemotron-4-340b", "smollm-135m"]
+            "nemotron-4-340b", "phi3.5-moe-42b-a6.6b", "smollm-135m"]
 
 
 @pytest.mark.parametrize("arch", RUNNABLE)
@@ -132,7 +134,6 @@ def test_check_serve_catches_wrong_attention(fault, monkeypatch):
 
 def test_serve_constants_fit_the_smoke():
     """The committed constants were made for the smoke's serve setup."""
-    import json
     want = json.loads(chip_smoke.SERVE_CONSTANTS.read_text())
     assert (want["arch"], want["B"], want["S"], want["max_new"],
             want["seed"]) == (chip_smoke.SERVE_ARCH, chip_smoke.SERVE_B,
@@ -141,6 +142,84 @@ def test_serve_constants_fit_the_smoke():
     assert len(want["steps"]) == chip_smoke.SERVE_NEW
     for rec in want["steps"]:
         assert np.asarray(rec["ids"]).shape == (chip_smoke.SERVE_B, 5)
+
+
+def test_moe_constants_fit_the_smoke():
+    """The committed MoE constants were made for the smoke's MoE setup:
+    every step and request of the JSON, and every MoE layer of the prefill
+    and of each decode step in the npz, with the prefill's capacity."""
+    want = json.loads(chip_smoke.MOE_CONSTANTS.read_text())
+    assert {k: want[k] for k in chip_smoke.moe_setup()} == \
+        chip_smoke.moe_setup()
+    assert len(want["steps"]) == chip_smoke.SERVE_NEW
+    for rec in want["steps"]:
+        assert np.asarray(rec["ids"]).shape == (chip_smoke.SERVE_B, 5)
+    cfg = chip_smoke.moe_config(get_config(chip_smoke.MOE_ARCH))
+    E, L, B = cfg.moe.n_experts, cfg.n_layers, chip_smoke.SERVE_B
+    T = B * chip_smoke.SERVE_S
+    z = np.load(chip_smoke.MOE_ROUTING)
+    assert int(z["capacity"]) == moe_capacity(cfg, T, decode=False)
+    assert z["prefill_scores"].shape == (L, 1, T, E)
+    assert z["prefill_auction_dispatch"].shape == (L, 1, T, E)
+    assert z["skewed_scores"].shape == (T, E)
+    assert z["decode_dispatch"].shape == (chip_smoke.SERVE_NEW - 1, L, 1, B,
+                                          E)
+    assert z["decode_unstable"].shape == (chip_smoke.SERVE_NEW - 1, L, B)
+    assert z["skewed_auction_prices"].max() > 0   # the price rounds engage
+
+
+def _moe_marks(n_steps=4, L=2, B=3):
+    return {"prefill_unstable": np.zeros(L, bool),
+            "prefill_flips": np.zeros(L, np.int32),
+            "decode_unstable": np.zeros((n_steps - 1, L, B), bool),
+            "prefill_dispatch": np.zeros((L, 1, 5, 4), bool),
+            "decode_dispatch": np.zeros((n_steps - 1, L, 1, B, 4), bool)}
+
+
+def test_moe_stops_follow_the_routing_marks():
+    """Nothing is compared past an unstable prefill; a request stops at
+    its first decode step whose routing is unstable in any layer."""
+    marks = _moe_marks()
+    assert chip_smoke.moe_stops(marks) == ([4, 4, 4],
+                                           "every step's routing stable")
+    marks["decode_unstable"][1, 1, 2] = True
+    stops, why = chip_smoke.moe_stops(marks)
+    assert stops == [4, 4, 2] and "request 2 from step 2" in why
+    marks["prefill_unstable"][1], marks["prefill_flips"][1] = True, 7
+    stops, why = chip_smoke.moe_stops(marks)
+    assert stops == [0, 0, 0] and "layer 1 (7 tokens move)" in why
+
+
+def test_check_moe_dispatch_fails_on_a_flip_where_jax_was_stable():
+    marks = _moe_marks()
+    seen = ([("auction_route", 3, torch.tensor(d))
+             for d in marks["prefill_dispatch"]]
+            + [("topk_route", 3, torch.tensor(marks["decode_dispatch"][t, i]))
+               for t in range(3) for i in range(2)])
+    assert chip_smoke.check_moe_dispatch(seen, marks, [4, 4, 4], 2) == \
+        2 * 5 + 3 * 2 * 3
+    seen[2 + 2 * 1 + 1][2][0, 2, 0] = True      # decode step 2, layer 1
+    with pytest.raises(AssertionError, match="step 2 layer 1 request 2"):
+        chip_smoke.check_moe_dispatch(seen, marks, [4, 4, 4], 2)
+    # not compared past request 2's stop
+    assert chip_smoke.check_moe_dispatch(seen, marks, [4, 4, 2], 2) == \
+        2 * 5 + 3 * 2 * 2 + 2
+    seen[0][2][0, 0, 0] = True                  # prefill layer 0
+    with pytest.raises(AssertionError, match="prefill layer 0"):
+        chip_smoke.check_moe_dispatch(seen, marks, [2, 2, 2], 2)
+    assert chip_smoke.check_moe_dispatch(seen, marks, [0, 0, 0], 2) == 0
+
+
+def test_check_serve_stops_where_told():
+    rng = np.random.default_rng(1)
+    logits = [rng.normal(size=(2, 50)).astype(np.float32) for _ in range(3)]
+    want = [chip_smoke.top5_records(lg) for lg in logits]
+    bad = [(np.argmax(lg, -1), lg.copy()) for lg in logits]
+    bad[2][1][1] = -bad[2][1][1]           # request 1 differs at step 2
+    with pytest.raises(AssertionError):
+        chip_smoke.check_serve(bad, want)
+    report = chip_smoke.check_serve(bad, want, stop=[3, 2])
+    assert report["steps_compared"] == [3, 2]
 
 
 def _cli(*args):
@@ -158,6 +237,19 @@ def test_serve_cli_on_cpu():
     assert lines[0].startswith("prefill: 2x8 in ")
     assert lines[1].startswith("decode: 3 steps in ")
     assert lines[2] == "sample generations (token ids):"
+    assert [ln.split(":")[0] for ln in lines[3:]] == ["  req0", "  req1"]
+
+
+def test_serve_cli_on_cpu_moe():
+    """phi3.5-moe's smoke variant through the CLI, its depth cut to 2
+    layers: flow routing in the prefill, top-k in the decode steps."""
+    proc = _cli("--arch", "phi3.5-moe-42b-a6.6b", "--smoke", "--n-layers",
+                "2", "--batch", "2", "--prompt-len", "8", "--max-new", "4",
+                "--device", "cpu")
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.splitlines()
+    assert lines[0].startswith("prefill: 2x8 in ")
+    assert lines[1].startswith("decode: 3 steps in ")
     assert [ln.split(":")[0] for ln in lines[3:]] == ["  req0", "  req1"]
 
 

@@ -1,6 +1,6 @@
 """Constants of the JAX package that ``chip_smoke.py`` holds the port to.
 
-    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_smoke_constants.py [rounds|serve]
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_smoke_constants.py [rounds|serve|moe]
 
 ``chip_smoke.py`` runs where JAX is not installed, so what it compares
 with the JAX package is made here, on the CPU, from the same inputs:
@@ -19,8 +19,18 @@ with the JAX package is made here, on the CPU, from the same inputs:
   the JAX ``greedy_generate`` does (``jax_generate``), and writes each
   step's top-5 ids, logits and largest |logit| per request
   (``chip_smoke.top5_records``) to ``chip_smoke.SERVE_CONSTANTS``.
+* ``moe`` (about 3 minutes on 8 cores, 29 GB resident at its peak): the
+  MoE serve phase's reference. phi3.5-moe at full width cut to
+  ``chip_smoke.MOE_LAYERS`` layers (``chip_smoke.moe_config``), weights
+  ``numpy_params(cfg, chip_smoke.SEED)``, the serve phase's prompts and
+  new tokens. It writes the top-5 records per step to
+  ``chip_smoke.MOE_CONSTANTS`` and, to ``chip_smoke.MOE_ROUTING``, every
+  MoE layer's gate logits and dispatch in the prefill and in each decode
+  step (recorded from inside the jitted model), the auction's and top-k's
+  routing of the prefill logits and of a seeded skewed score set, and
+  the routing-stability marks (``routing_marks``).
 
-With no argument it makes both.
+With no argument it makes all three.
 """
 import json
 import pathlib
@@ -136,7 +146,151 @@ def serve() -> None:
           f"{out['tokens'][0]}")
 
 
+def _record_routers(seen: list):
+    """Wrap the JAX ``models.mlp`` routers so that every call inside the
+    jitted model hands its scores and dispatch to the host, in order.
+    Returns a function that puts the originals back."""
+    from repro.models import mlp
+    originals = {n: getattr(mlp, n) for n in ("auction_route", "topk_route")}
+
+    def spy(name):
+        def route(scores, k, capacity, **kw):
+            r = originals[name](scores, k, capacity, **kw)
+            jax.debug.callback(
+                lambda s, d: seen.append((name, capacity, np.asarray(s),
+                                          np.asarray(d))),
+                scores, r.dispatch, ordered=True)
+            return r
+        return route
+    for name in originals:
+        setattr(mlp, name, spy(name))
+    return lambda: [setattr(mlp, n, f) for n, f in originals.items()]
+
+
+def _routing_arrays(prefix: str, r) -> dict:
+    """A JAX ``Routing`` as npz arrays, ``{prefix}_{field}``."""
+    return {f"{prefix}_{k}": np.asarray(x) for k, x in r._asdict().items()}
+
+
+def routing_marks(scores: np.ndarray, route, rng) -> np.ndarray:
+    """Per token (all leading axes but the expert one): whether its
+    dispatch row changes when ``scores`` move by
+    ``chip_smoke.MOE_PERTURB`` x the set's largest |score| x N(0, 1), in
+    any of ``chip_smoke.MOE_DRAWS`` draws (``route``: scores -> dispatch,
+    numpy)."""
+    want = route(scores)
+    moved = np.zeros(scores.shape[:-1], bool)
+    scale = np.float32(chip_smoke.MOE_PERTURB * np.abs(scores).max())
+    for _ in range(chip_smoke.MOE_DRAWS):
+        z = rng.standard_normal(scores.shape, dtype=np.float32)
+        moved |= np.any(route(scores + scale * z) != want, axis=-1)
+    return moved
+
+
+def moe() -> None:
+    from repro.configs.base import get_config
+    from repro.core.routing import auction_route, topk_route
+    from repro.models.model import init_model
+
+    from repro_torch.interop import numpy_params
+    t0 = time.perf_counter()
+    cfg = chip_smoke.moe_config(get_config(chip_smoke.MOE_ARCH))
+    e = cfg.moe
+    B, S, new = chip_smoke.SERVE_B, chip_smoke.SERVE_S, chip_smoke.SERVE_NEW
+    T, L = B * S, cfg.n_layers
+    cap = min(max(1, int(T * e.top_k / e.n_experts * e.capacity_factor)), T)
+    params = numpy_params(cfg, chip_smoke.SEED)
+
+    def to_jax(tree):     # leaf by leaf, so numpy and JAX copies never pile up
+        for k, x in tree.items():
+            if isinstance(x, dict):
+                to_jax(x)
+            elif isinstance(x, list):
+                for sub in x:
+                    to_jax(sub)
+            else:
+                tree[k] = jnp.asarray(x)
+        return tree
+    params = to_jax(params)
+    held = {}
+
+    def params_only():          # traced, so no weight is drawn
+        p, held["axes"] = init_model(cfg, jax.random.PRNGKey(0))
+        return p
+    jax.eval_shape(params_only)
+    axes = held["axes"]
+    print(f"# {cfg.name}, {L} layers: weights in "
+          f"{time.perf_counter() - t0:.0f} s", flush=True)
+
+    seen: list = []
+    restore = _record_routers(seen)
+    try:
+        prompts = chip_smoke.serve_prompts(cfg.vocab, B, S)
+        tokens, steps = jax_generate(cfg, params, axes, prompts, new,
+                                     S_max=S + new)
+        jax.effects_barrier()
+    finally:
+        restore()
+    del params
+    print(f"# generated ({time.perf_counter() - t0:.0f} s); request 0 "
+          f"tokens {tokens[0].tolist()}", flush=True)
+    router = "auction_route" if e.router == "flow" else "topk_route"
+    pre, dec = seen[:L], seen[L:]
+    assert [n for n, *_ in pre] == [router] * L, [n for n, *_ in pre]
+    assert [(n, c) for n, c, *_ in dec] == [("topk_route", B)] * (L * (new - 1))
+    rng = np.random.default_rng(chip_smoke.SEED + 4)
+
+    def auction(s):
+        return np.asarray(auction_route(jnp.asarray(s), e.top_k, cap,
+                                        n_iters=e.router_iters).dispatch)
+
+    def topk(s, c):
+        return np.asarray(topk_route(jnp.asarray(s), e.top_k, c).dispatch)
+
+    out = {"capacity": np.int32(cap),
+           "prefill_scores": np.stack([s for _, _, s, _ in pre]),
+           "prefill_dispatch": np.stack([d for *_, d in pre]),
+           "decode_scores": np.stack([s for _, _, s, _ in dec]).reshape(
+               new - 1, L, 1, B, e.n_experts),
+           "decode_dispatch": np.stack([d for *_, d in dec]).reshape(
+               new - 1, L, 1, B, e.n_experts)}
+    skew = chip_smoke.moe_skewed_scores(T, e.n_experts)
+    out["skewed_scores"] = skew
+    for name, s in (("prefill", out["prefill_scores"]), ("skewed", skew)):
+        out.update(_routing_arrays(f"{name}_auction", auction_route(
+            jnp.asarray(s), e.top_k, cap, n_iters=e.router_iters)))
+        out.update(_routing_arrays(f"{name}_topk", topk_route(
+            jnp.asarray(s), e.top_k, cap)))
+    # the routing inside the jitted model is the eager router's
+    assert np.array_equal(out[f"prefill_{router.split('_')[0]}_dispatch"],
+                          out["prefill_dispatch"])
+    flips = np.stack([routing_marks(s, auction if router == "auction_route"
+                                    else lambda x: topk(x, cap), rng)
+                      for s in out["prefill_scores"]])     # (L, 1, T)
+    out["prefill_flips"] = flips.reshape(L, -1).sum(-1).astype(np.int32)
+    out["prefill_unstable"] = out["prefill_flips"] > 0
+    out["decode_unstable"] = np.stack([
+        routing_marks(s, lambda x: topk(x, B), rng)
+        for s in out["decode_scores"].reshape(-1, 1, B, e.n_experts)
+    ]).reshape(new - 1, L, B)
+    out["skewed_unstable"] = routing_marks(skew, auction, rng)
+    np.savez_compressed(chip_smoke.MOE_ROUTING, **out)
+    setup = chip_smoke.moe_setup()
+    chip_smoke.MOE_CONSTANTS.write_text(json.dumps(dict(
+        setup, tokens=tokens.tolist(),
+        steps=[chip_smoke.top5_records(lg) for lg in steps])) + "\n")
+    print(f"# wrote {chip_smoke.MOE_CONSTANTS.relative_to(ROOT)} and "
+          f"{chip_smoke.MOE_ROUTING.relative_to(ROOT)} "
+          f"({time.perf_counter() - t0:.0f} s): capacity {cap}; prefill "
+          f"tokens whose dispatch moves per layer "
+          f"{out['prefill_flips'].tolist()}; decode (step, layer, request) "
+          f"marks {np.argwhere(out['decode_unstable']).tolist()}; skewed "
+          f"set {int(out['skewed_unstable'].sum())} tokens, auction prices "
+          f"up to {float(out['skewed_auction_prices'].max()):.4f}",
+          flush=True)
+
+
 if __name__ == "__main__":
-    which = sys.argv[1:] or ["rounds", "serve"]
+    which = sys.argv[1:] or ["rounds", "serve", "moe"]
     for name in which:
-        {"rounds": rounds, "serve": serve}[name]()
+        {"rounds": rounds, "serve": serve, "moe": moe}[name]()
