@@ -22,7 +22,9 @@ Drives ``src/repro_torch`` only (no ``jax``, nothing of ``repro``):
    shape (8 x 1024 tokens, 9 heads over 3 kv heads, dh 64, causal, float32
    and bfloat16) and at the MoE serve path's (8 x 1024 tokens, 32 heads
    over 8 kv heads, dh 128, causal, float32, on ``flash_fwd_mma``), with
-   ``F.scaled_dot_product_attention`` timed as its yardstick at both; K4 and K5 are timed once more with the L2 flushed before
+   ``F.scaled_dot_product_attention`` timed as its yardstick at both, and
+   at the MLA serve path's (8 x 1024 tokens, 128 heads, qk 192, v 128,
+   causal, float32, on ``flash_fwd_mma``); K4 and K5 are timed once more with the L2 flushed before
    every call, and K5 also at 3% and 95% of its rows labeled (``[k5]``
    lines: each time against its bound);
 3. drives the grid path, ``maxflow_grid_batch`` on 4 seeded
@@ -145,7 +147,21 @@ Drives ``src/repro_torch`` only (no ``jax``, nothing of ``repro``):
    must launch once per layer in each prefill, all on ``flash_fwd_mma``,
    never in a decode step, and no other port kernel may launch. A
    profiled prefill and decode step give device busy, idle share, the
-   largest device items and their split by kernel name.
+   largest device items and their split by kernel name;
+13. drives the MLA serving path (``phase_mla``, ROADMAP M9b.2):
+   deepseek-v2 at full width (d_model 5120, 128 heads, MLA with q_lora
+   1536, kv_lora 512, qk 128 + 64, v 128; 160 experts of d_ff 1536, top-6,
+   2 shared, ``router="flow"``) cut to DS_LAYERS (2) layers, layer 0 the
+   dense prefix (SwiGLU of d_ff 12,288) and layer 1 the MoE, on
+   ``numpy_params`` weights (seed 0), float32. The routers on the card
+   route the JAX package's layer-1 gate logits and the skewed set as JAX
+   did (a price must rise on the skewed set); after one prefill the
+   hidden state after layer 0 and layer 0's ``c_kv`` / ``k_rope`` cache
+   rows, at every MLA_SAMPLE-th position and the last, lie within
+   LOGIT_TOL x the largest |value| of JAX's
+   (``tests/torch_smoke_deepseek.npz``); then generations as in phase 12
+   against ``tests/torch_smoke_deepseek.json``, with ``moe_stops``'
+   exact rule for tokens whose last-layer routing JAX found unstable.
 
 Prints one JSON line per kernel summary, the ``nvidia-smi`` name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero
@@ -210,6 +226,25 @@ MOE_ROUTING = ROOT / "tests" / "torch_smoke_moe.npz"
 MOE_PERTURB = 1e-6
 MOE_DRAWS = 4
 MOE_SKEW = 0.5
+# the MLA serve path: deepseek-v2 at full width cut to DS_LAYERS layers:
+# layer 0 the dense prefix (MLA, SwiGLU of d_ff 12,288), layer 1 MLA and
+# the MoE (160 experts, top-6, 2 shared), every kind of layer the model
+# has (60 float32 layers are about 944 GB, 2 are 21.4 GB), on the serve
+# phase's prompts. The JAX package's top-5 logits per step are in
+# MLA_CONSTANTS; in MLA_ROUTING its routing as in MOE_ROUTING, with a
+# routing-stability mark per prefill token (``moe_stops``), and, at every
+# MLA_SAMPLE-th prompt position and the last, the hidden state after layer
+# 0 and layer 0's cache rows (`PYTHONPATH=src JAX_PLATFORMS=cpu python
+# tests/torch_smoke_constants.py deepseek`)
+MLA_ARCH = "deepseek-v2-236b"
+DS_LAYERS = 2
+MLA_CONSTANTS = ROOT / "tests" / "torch_smoke_deepseek.json"
+MLA_ROUTING = ROOT / "tests" / "torch_smoke_deepseek.npz"
+MLA_SAMPLE = 64
+# deepseek's gate logits on the card differ from JAX's on the CPU by up to
+# 7.7e-6 of their largest |logit| (after layer 0 and K6; phi's first layer
+# has no such depth), so its marks move the scores by 1e-5 of it
+MLA_PERTURB = 1e-5
 # the router's combine weights (softmaxes in [0, 1]) against JAX's
 COMBINE_TOL = 1e-6
 # Each of the port's logits at JAX's top-5 ids must lie within LOGIT_TOL x
@@ -899,10 +934,14 @@ def kernels_flash(dev) -> dict:
     mcfg = get_config(MOE_ARCH)
     moe = (SERVE_B, SERVE_S, SERVE_S, mcfg.n_heads, mcfg.n_kv_heads,
            mcfg.dh, mcfg.dh)
+    dcfg = get_config(MLA_ARCH)
+    mla = (SERVE_B, SERVE_S, SERVE_S, dcfg.n_heads, dcfg.n_kv_heads,
+           dcfg.mla.qk_nope_dim + dcfg.mla.qk_rope_dim, dcfg.mla.v_dim)
     cases = FLASH_SWEEP + FLASH_TAILS + [(moe, True, torch.float32),
+                                         (mla, True, torch.float32),
                                          (serve, True, torch.bfloat16),
                                          (serve, True, torch.float32)]
-    sweep = []
+    sweep, shapes = [], {}
     for dims, causal, dtype in cases:
         q, k, v = flash_inputs(rng, dims, dtype, dev)
         got = flash_attention_fwd(q, k, v, causal=causal)
@@ -917,8 +956,10 @@ def kernels_flash(dev) -> dict:
                           dtype=str(dtype).split(".")[1], max_abs_err=err))
         log(f"[kernels] K6 {dims} causal={causal} {dtype}: max abs err "
             f"{err:.3g} (tolerance {FLASH_TOL[dtype]})")
-        if dims == moe:
-            moe_case = (q, k, v, want, err)
+        if dims in (moe, mla):
+            shapes[dims] = kernels_flash_at(dims, q, k, v, want, err)
+            del q, k, v, want
+            continue
         if dims == serve and dtype == torch.bfloat16:
             bf16 = time_ms(lambda: flash_attention_fwd(q, k, v, causal=True),
                            symbol="flash_fwd_")
@@ -949,15 +990,17 @@ def kernels_flash(dev) -> dict:
                          "flash_fwd_"))
     row["bf16_ms"] = took(row, "bf16_ms", bf16)
     row["library_ms"] = took(row, "library_ms", time_ms(library))
-    row["moe_shape"] = kernels_flash_moe(moe, *moe_case)
+    row["moe_shape"], row["mla_shape"] = shapes[moe], shapes[mla]
     return {"flash_attention_fwd": row}
 
 
-def kernels_flash_moe(dims, q, k, v, want, err) -> dict:
-    """K6 at the MoE serve path's prefill shape (phi3.5-moe: 32 heads over
-    8 kv heads of 128, float32, causal), already held to its plain version
-    in ``kernels_flash``: its launch geometry, device ms, the plain
-    version's and ``F.scaled_dot_product_attention``'s, and its bound."""
+def kernels_flash_at(dims, q, k, v, want, err) -> dict:
+    """K6 at a routed serve path's prefill shape, float32, causal
+    (phi3.5-moe: 32 heads over 8 kv heads of 128; deepseek-v2's MLA: 128
+    heads, qk 192, v 128, scale 192 ** -0.5), already held to its plain
+    version in ``kernels_flash``: its launch geometry, device ms, the
+    plain version's and ``F.scaled_dot_product_attention``'s, and its
+    bound."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.kernel import (
@@ -977,7 +1020,7 @@ def kernels_flash_moe(dims, q, k, v, want, err) -> dict:
                          lambda: flash_attention_ref(q, k, v, causal=True),
                          "flash_fwd_"))
     row["library_ms"] = took(row, "library_ms", time_ms(library))
-    log(f"[kernels] K6 at the MoE prefill shape {dims}: launch {geo}; "
+    log(f"[kernels] K6 at the prefill shape {dims}: launch {geo}; "
         f"device {row['ms']:.4f} ms (plain {row['plain_ms']:.4f} ms, "
         f"scaled_dot_product_attention {row['library_ms']:.4f} ms, max abs "
         f"diff {lib_err:.3g} from the plain version), bound "
@@ -2208,6 +2251,68 @@ def moe_setup() -> dict:
                 draws=MOE_DRAWS, skew=MOE_SKEW)
 
 
+def mla_config(cfg):
+    """The MLA serve phase's config: ``cfg`` (either package's deepseek-v2)
+    at full width, cut to DS_LAYERS layers."""
+    import dataclasses
+    return dataclasses.replace(cfg, n_layers=DS_LAYERS)
+
+
+def mla_setup() -> dict:
+    """What the MLA constants were made for."""
+    return dict(moe_setup(), arch=MLA_ARCH, n_layers=DS_LAYERS,
+                perturb=MLA_PERTURB, sample=MLA_SAMPLE)
+
+
+def sample_positions(S: int = SERVE_S) -> np.ndarray:
+    """Every MLA_SAMPLE-th prompt position and the last (every request's
+    prompt is S long)."""
+    return np.unique(np.r_[np.arange(0, S, MLA_SAMPLE), S - 1])
+
+
+def layer0_rows(model, prompts: torch.Tensor, S_max: int) -> dict:
+    """One prefill through ``make_prefill_step``: the hidden state after
+    layer 0 (a forward hook on it) and layer 0's cache rows (MLA: ``c_kv``
+    and ``k_rope``) at ``sample_positions``, as float32 numpy arrays."""
+    from repro_torch.models.model import init_caches
+    from repro_torch.serve.engine import make_prefill_step
+    B, S = prompts.shape
+    pos = torch.tensor(sample_positions(S), device=prompts.device)
+    caches = init_caches(model.cfg, B, S_max, dtype=torch.float32,
+                         device=prompts.device)
+    rows = {}
+
+    def hook(module, args, out):
+        rows["hidden"] = out[0][:, pos].float().cpu().numpy()
+    handle = model.layers[0].register_forward_hook(hook)
+    try:
+        make_prefill_step(model)(prompts, caches)
+    finally:
+        handle.remove()
+    rows["c_kv"] = caches[0].k[:, pos].float().cpu().numpy()
+    rows["k_rope"] = caches[0].v[:, pos].float().cpu().numpy()
+    return rows
+
+
+def check_layer0(got: dict, want, tol: float = LOGIT_TOL) -> dict:
+    """``layer0_rows`` against the JAX package's (``want``: the npz's
+    ``layer0_*``): each within ``tol`` x JAX's largest |value|. Returns
+    each error as a share of its tolerance."""
+    out = {}
+    for key in ("hidden", "c_kv", "k_rope"):
+        ref = np.asarray(want[f"layer0_{key}"])
+        if got[key].shape != ref.shape:
+            raise AssertionError(f"layer 0 {key}: shape {got[key].shape}, "
+                                 f"JAX's {ref.shape}")
+        lim = tol * np.abs(ref).max()
+        err = float(np.abs(got[key] - ref).max())
+        if not err <= lim:
+            raise AssertionError(f"layer 0 {key}: off JAX's by {err:.3g} > "
+                                 f"{lim:.3g}")
+        out[key] = err / lim
+    return out
+
+
 def moe_skewed_scores(T: int, E: int, seed: int = SEED + 3) -> np.ndarray:
     """``(T, E)`` float32 N(0, 1) scores plus a per-expert offset of std
     MOE_SKEW: some experts overflow, so the auction raises prices."""
@@ -2386,6 +2491,30 @@ def record_routing():
             setattr(mlp, name, fn)
 
 
+@contextlib.contextmanager
+def pinned_prefill_routing(scores):
+    """Route each MoE layer of the prefill (``router="flow"``: the port's
+    ``auction_route``, where ``models.mlp`` calls it) on the JAX package's
+    gate logits of that layer (``scores``, in call order) in place of the
+    port's own, so that the prefill's dispatch is JAX's: the routers route
+    JAX's logits as JAX did, bit for bit (``moe_routers``). The combine
+    weights still come from the port's logits. Yields, per layer, the
+    largest |port - JAX| gate logit as a share of JAX's largest |logit|."""
+    from repro_torch.models import mlp
+    original = mlp.auction_route
+    diffs = []
+
+    def route(s, k, capacity, **kw):
+        ref = torch.tensor(scores[len(diffs)], device=s.device)
+        diffs.append(float((s.float() - ref).abs().max() / ref.abs().max()))
+        return original(ref, k, capacity, **kw)
+    try:
+        mlp.auction_route = route
+        yield diffs
+    finally:
+        mlp.auction_route = original
+
+
 def check_routing(got, want: dict, what: str) -> dict:
     """A port ``Routing`` against the JAX package's (``want``: its fields
     as numpy arrays): dispatch and demand equal, prices equal bit for bit,
@@ -2412,7 +2541,7 @@ def check_routing(got, want: dict, what: str) -> dict:
                 combine_err=err)
 
 
-def moe_routers(dev, cfg, want, card: str) -> dict:
+def moe_routers(dev, cfg, want, card: str, tag: str = "moe") -> dict:
     """The port's ``auction_route`` and ``topk_route`` on the card, on the
     JAX package's gate logits of each MoE layer of the prefill and on the
     skewed score set, at the prefill's capacity, against the JAX
@@ -2422,8 +2551,9 @@ def moe_routers(dev, cfg, want, card: str) -> dict:
     e = cfg.moe
     cap = int(want["capacity"])
     fields = ("dispatch", "combine", "prices", "demand")
-    sets = [(f"prefill layer {i}", "prefill", i)
-            for i in range(len(want["prefill_scores"]))]
+    n = len(want["prefill_scores"])
+    sets = [(f"prefill layer {int(layer)}", "prefill", i) for i, layer in
+            enumerate(want.get("moe_layers", range(n)))]
     sets.append(("skewed", "skewed", ...))
     out = {}
     for what, prefix, at in sets:
@@ -2438,7 +2568,7 @@ def moe_routers(dev, cfg, want, card: str) -> dict:
                 f"{name}_route on {what}")
             res["ms"] = time_ms(route).ms
             out[f"{name} {what}"] = res
-            log(f"[moe] {name}_route on the card, {what} "
+            log(f"[{tag}] {name}_route on the card, {what} "
                 f"{tuple(scores.shape)}, capacity {cap}: equal to the JAX "
                 f"package's (dispatch, demand, prices; combine within "
                 f"{res['combine_err']:.3g}); {res['routed']} routed, prices "
@@ -2447,48 +2577,91 @@ def moe_routers(dev, cfg, want, card: str) -> dict:
     return out
 
 
+def local_marks(want, layer: int):
+    """The prefill tokens marked unstable in MoE layer ``layer`` (index
+    into the npz's MoE layers), where such a mark can move nothing but its
+    own token's last hidden row, else None. That holds when the layer is
+    the model's last (no later layer reads the row, and every cache is
+    built from the layers' inputs, free of this routing), the auction's
+    largest demand there is below capacity - 1 (one moved pick cannot fill
+    an expert) and no price rose (no token bid against another): then the
+    auction is every token's own top-k. Constants without per-token marks
+    (phi3.5-moe's) give None."""
+    if "prefill_token_unstable" not in want:
+        return None
+    cap = int(want["capacity"])
+    if (int(want["moe_layers"][layer]) != int(want["n_layers"]) - 1
+            or int(want["prefill_auction_demand"][layer].max()) >= cap - 1
+            or bool((want["prefill_auction_prices"][layer] > 0).any())):
+        return None
+    return np.asarray(want["prefill_token_unstable"][layer], bool)
+
+
 def moe_stops(want) -> tuple[list, str]:
     """Per request, the first step not compared with the JAX constants,
-    and why: every step if any MoE layer's routing of the prefill is
-    unstable (capacity couples all tokens, and the caches carry it on),
-    else the first decode step in which that request's routing is
-    unstable in some layer (decode routes each token on its own)."""
+    and why. An unstable prefill routing decision stops every request at
+    step 0 (capacity couples all tokens, and the caches carry it on),
+    unless ``local_marks`` confines it to its own token: then it stops
+    only the request whose last prompt position it is (the prefill reads
+    only that row's logits). Past that, each request stops at the first
+    decode step in which its routing is unstable in some layer (decode
+    routes each token on its own)."""
     B = want["decode_unstable"].shape[-1]
     n_steps = want["decode_unstable"].shape[0] + 1
-    bad = np.flatnonzero(want["prefill_unstable"])
-    if bad.size:
-        return [0] * B, (f"prefill routing unstable at layer {int(bad[0])} "
-                         f"({int(want['prefill_flips'][bad[0]])} tokens move): "
-                         f"nothing compared")
-    stops = []
+    S = want["prefill_dispatch"].shape[-2] // B
+    layers = want.get("moe_layers", np.arange(len(want["prefill_unstable"])))
+    stops, why = [n_steps] * B, []
+    for i in np.flatnonzero(want["prefill_unstable"]):
+        marks = local_marks(want, i)
+        if marks is None:
+            return [0] * B, (f"prefill routing unstable at layer "
+                             f"{int(layers[i])} "
+                             f"({int(want['prefill_flips'][i])} tokens move): "
+                             f"nothing compared")
+        hit = [b for b in range(B) if marks[(b + 1) * S - 1]]
+        for b in hit:
+            stops[b] = 0
+        why.append(f"prefill routing unstable at layer {int(layers[i])}, "
+                   f"the last, only at tokens "
+                   f"{np.flatnonzero(marks).tolist()} (slack capacity, no "
+                   f"price rose): requests {hit} not compared")
+    decode = []
     for b in range(B):
         steps = np.flatnonzero(want["decode_unstable"][:, :, b].any(-1))
-        stops.append(int(steps[0]) + 1 if steps.size else n_steps)
-    why = ", ".join(f"request {b} from step {s}" for b, s in enumerate(stops)
-                    if s < n_steps)
-    return stops, ("decode routing unstable: " + why if why
-                   else "every step's routing stable")
+        if steps.size and int(steps[0]) + 1 < stops[b]:
+            stops[b] = int(steps[0]) + 1
+            decode.append(f"request {b} from step {stops[b]}")
+    if decode:
+        why.append("decode routing unstable: " + ", ".join(decode))
+    return stops, "; ".join(why) or "every step's routing stable"
 
 
 def check_moe_dispatch(seen: list, want, compared: list, n_layers: int):
     """The port's dispatch in each MoE layer of the prefill and of each
     decode step (``record_routing``) against the JAX package's wherever it
     was compared: the prefill's layers up to the first unstable one when
-    any request was compared, each decode step of request ``b`` before
-    ``compared[b]``. A difference there fails the run: JAX's routing was
-    stable. Returns the layers and token rows held equal."""
+    any request was compared (an unstable layer that ``local_marks``
+    confines is compared but for its marked tokens), each decode step of
+    request ``b`` before ``compared[b]``. ``n_layers`` counts the MoE
+    layers. A difference there fails the run: JAX's routing was stable.
+    Returns the layers and token rows held equal."""
     if len(seen) != n_layers * (want["decode_dispatch"].shape[0] + 1):
         raise AssertionError(f"moe: {len(seen)} router calls")
     rows = 0
     if max(compared) > 0:
         for layer in range(n_layers):
-            if want["prefill_unstable"][layer]:
-                break
             d = seen[layer][2].cpu().numpy()
-            if not np.array_equal(d, want["prefill_dispatch"][layer]):
+            ref = want["prefill_dispatch"][layer]
+            keep = np.ones(ref.shape[:-1], bool)
+            if want["prefill_unstable"][layer]:
+                marks = local_marks(want, layer)
+                if marks is None:
+                    break
+                keep = ~marks.reshape(keep.shape)
+            if not np.array_equal(d[keep], ref[keep]):
                 raise AssertionError(f"moe prefill layer {layer}: the port's "
                                      f"dispatch differs from JAX's stable one")
-            rows += d.shape[-2]
+            rows += int(keep.sum())
     for i, (_, _, d) in enumerate(seen[n_layers:]):
         t, layer = divmod(i, n_layers)
         d = d.cpu().numpy()
@@ -2521,46 +2694,21 @@ def device_split(rows) -> dict:
     return out
 
 
-def phase_moe(dev, counts: dict, card: str) -> dict:
-    """phi3.5-moe at full width and MOE_LAYERS layers on ``numpy_params``
-    weights: the routers on the card against the JAX package's routing of
-    its own gate logits (``moe_routers``); a warm-up and two timed
-    generations of SERVE_B x SERVE_S prompts and SERVE_NEW tokens, each
-    held to the JAX constants by ``check_serve`` up to ``moe_stops`` and
-    the port's dispatch to JAX's where it was compared
-    (``check_moe_dispatch``); K6 launched once per layer in each prefill,
-    all on ``flash_fwd_mma``, never in decode, and no other port kernel;
-    then one profiled prefill and one profiled decode step."""
-    from repro_torch.configs.base import get_config
-    from repro_torch.interop import model_from_params, numpy_params
+def routed_serve(tag: str, dev, counts: dict, model, want: dict, routing,
+                 card: str) -> dict:
+    """A warm-up and two timed generations of SERVE_B x SERVE_S prompts
+    and SERVE_NEW tokens on a routed model, each held to the JAX constants
+    (``want``) by ``check_serve`` up to ``moe_stops`` and the port's
+    dispatch to JAX's where it was compared (``check_moe_dispatch``); K6
+    launched once per layer in each prefill, all on ``flash_fwd_mma``,
+    never in decode, and no other port kernel; then one profiled prefill
+    and one profiled decode step. ``tag`` names the phase in the log and
+    in ``counts``."""
     from repro_torch.models.model import init_caches
     from repro_torch.serve.engine import make_prefill_step, make_serve_step
-    if torch.backends.cuda.matmul.allow_tf32:
-        raise AssertionError("TF32 matmuls are on; the MoE check assumes "
-                             "full float32")
-    want = json.loads(MOE_CONSTANTS.read_text())
-    if {k: want[k] for k in moe_setup()} != moe_setup():
-        raise AssertionError(f"{MOE_CONSTANTS.name} was made for "
-                             f"{ {k: want[k] for k in moe_setup()} }, not "
-                             f"{moe_setup()}")
-    routing = dict(np.load(MOE_ROUTING))
-    cfg = moe_config(get_config(MOE_ARCH))
-    routers = moe_routers(dev, cfg, routing, card)
-
-    t0 = time.perf_counter()
-    params = numpy_params(cfg, SEED)
-    t_numpy = time.perf_counter() - t0
-    model = model_from_params(cfg, params, device=dev)
-    del params
-    n_params = sum(p.numel() for p in model.parameters())
+    cfg = model.cfg
     prompts = torch.tensor(serve_prompts(cfg.vocab, SERVE_B, SERVE_S),
                            device=dev)
-    log(f"[moe] {MOE_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.moe.n_experts} experts of {cfg.moe.d_ff_expert}, top "
-        f"{cfg.moe.top_k}, router {cfg.moe.router}: {n_params} parameters "
-        f"on the card ({torch.cuda.memory_allocated() / 2**30:.2f} GiB "
-        f"allocated) in {time.perf_counter() - t0:.1f} s ({t_numpy:.1f} s "
-        f"of it numpy)")
     stops, why = moe_stops(routing)
     S_max = SERVE_S + SERVE_NEW
     walls = []
@@ -2570,18 +2718,18 @@ def phase_moe(dev, counts: dict, card: str) -> dict:
                 model, prompts, SERVE_NEW, S_max)
         got = check_serve(steps, want["steps"], stop=stops)
         rows = check_moe_dispatch(seen, routing, got["steps_compared"],
-                                  cfg.n_layers)
+                                  len(routing["prefill_scores"]))
         if c_pre["flash_attention_fwd"] != cfg.n_layers:
-            raise AssertionError(f"moe prefill: K6 launched "
+            raise AssertionError(f"{tag} prefill: K6 launched "
                                  f"{c_pre['flash_attention_fwd']} times, not "
                                  f"once per layer ({cfg.n_layers})")
         require_not_launched(c_pre, [n for n in c_pre
                                      if n != "flash_attention_fwd"],
-                             "moe prefill")
+                             f"{tag} prefill")
         for c in c_steps:
-            require_not_launched(c, list(c), "moe decode step")
+            require_not_launched(c, list(c), f"{tag} decode step")
         tokens = np.stack([t for t, _ in steps], 1)
-        log(f"[moe] {run}: prefill {t_pre * 1e3:.2f} ms "
+        log(f"[{tag}] {run}: prefill {t_pre * 1e3:.2f} ms "
             f"({SERVE_B * SERVE_S / t_pre:.0f} tok/s), decode "
             f"{np.mean(t_steps) * 1e3:.3f} ms per token step "
             f"({SERVE_B / np.mean(t_steps):.0f} tok/s); JAX check {got}, "
@@ -2589,25 +2737,136 @@ def phase_moe(dev, counts: dict, card: str) -> dict:
             f"dispatch; request 0 tokens {tokens[0].tolist()}")
         if run != "warm-up":
             walls.append((t_pre, float(np.mean(t_steps))))
-            counts.setdefault("moe_prefill", c_pre)
-            counts.setdefault("moe_decode", {
+            counts.setdefault(f"{tag}_prefill", c_pre)
+            counts.setdefault(f"{tag}_decode", {
                 n: sum(c[n] for c in c_steps) for n in c_pre})
+    pinned = None
+    if min(stops) == 0:
+        pinned = pinned_serve(tag, model, prompts, want, routing)
     t_pre = sum(w[0] for w in walls) / len(walls)
     t_step = sum(w[1] for w in walls) / len(walls)
     caches = init_caches(cfg, SERVE_B, S_max, dtype=torch.float32,
                          device=dev)
-    pre = profile("moe prefill 8 x 1024", t_pre, make_prefill_step(model),
-                  prompts, caches, top=16, split=True)
+    pre = profile(f"{tag} prefill 8 x 1024", t_pre,
+                  make_prefill_step(model), prompts, caches, top=16,
+                  split=True)
     k6 = {name: n for name, (_, n) in pre["port_kernels"].items()}
     if k6 != {"flash_fwd_mma": cfg.n_layers}:
-        raise AssertionError(f"moe prefill: port kernels {k6}, not "
+        raise AssertionError(f"{tag} prefill: port kernels {k6}, not "
                              f"{cfg.n_layers} launches of flash_fwd_mma")
-    dec = profile("moe decode step", t_step, make_serve_step(model), state,
-                  top=16, split=True)
-    log(f"[moe] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
-        f"GiB; {n_params} parameters; on {card}")
-    return dict(walls=walls, prefill=pre, decode=dec, routers=routers,
-                n_params=n_params, stops=stops, why=why)
+    dec = profile(f"{tag} decode step", t_step, make_serve_step(model),
+                  state, top=16, split=True)
+    log(f"[{tag}] peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; on {card}")
+    return dict(walls=walls, prefill=pre, decode=dec, stops=stops, why=why,
+                pinned=pinned)
+
+
+def pinned_serve(tag: str, model, prompts, want: dict, routing) -> dict:
+    """One more generation, untimed, whose prefill routes on the JAX
+    package's gate logits (``pinned_prefill_routing``): where the JAX side
+    marked prefill routing decisions that float32 rounding can flip, this
+    holds everything else end to end (attention, the dense and expert
+    products, combine, caches, the decode steps) to the JAX constants by
+    ``check_serve``, stopping only at unstable decode routing, with the
+    prefill's dispatch equal to JAX's and each decode step's where
+    compared."""
+    if model.cfg.moe.router != "flow":
+        raise AssertionError(f"{tag}: pinned routing is for the auction")
+    stable = dict(routing, prefill_unstable=np.zeros_like(
+        routing["prefill_unstable"]))
+    stops, why = moe_stops(stable)
+    with pinned_prefill_routing(routing["prefill_scores"]) as diffs, \
+            record_routing() as seen:
+        steps, *_ = port_serve(model, prompts, SERVE_NEW,
+                               SERVE_S + SERVE_NEW)
+    got = check_serve(steps, want["steps"], stop=stops)
+    rows = check_moe_dispatch(seen, stable, got["steps_compared"],
+                              len(routing["prefill_scores"]))
+    log(f"[{tag}] pinned prefill routing (JAX's gate logits; the port's "
+        f"differ by up to {diffs} of their largest |logit|): JAX check "
+        f"{got}, stopped where {why}; {rows} routed token rows held to "
+        f"JAX's dispatch")
+    return dict(got, logit_diff=diffs, rows=rows)
+
+
+def routed_model(tag: str, cfg, dev):
+    """``cfg``'s model on ``numpy_params`` weights (seed SEED) on ``dev``,
+    logged with its size and how long numpy took to draw it."""
+    from repro_torch.interop import model_from_params, numpy_params
+    t0 = time.perf_counter()
+    params = numpy_params(cfg, SEED)
+    t_numpy = time.perf_counter() - t0
+    model = model_from_params(cfg, params, device=dev)
+    del params
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[{tag}] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.moe.n_experts} experts of {cfg.moe.d_ff_expert}, top "
+        f"{cfg.moe.top_k}, router {cfg.moe.router}: {n_params} parameters "
+        f"on the card ({torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"allocated) in {time.perf_counter() - t0:.1f} s ({t_numpy:.1f} s "
+        f"of it numpy)")
+    return model, n_params
+
+
+def load_constants(constants: pathlib.Path, routing: pathlib.Path,
+                   setup: dict) -> tuple[dict, dict]:
+    """A routed phase's JAX constants (JSON and npz), checked to have been
+    made for ``setup``."""
+    want = json.loads(constants.read_text())
+    if {k: want[k] for k in setup} != setup:
+        raise AssertionError(f"{constants.name} was made for "
+                             f"{ {k: want[k] for k in setup} }, not {setup}")
+    return want, dict(np.load(routing))
+
+
+def phase_moe(dev, counts: dict, card: str) -> dict:
+    """phi3.5-moe at full width and MOE_LAYERS layers on ``numpy_params``
+    weights: the routers on the card against the JAX package's routing of
+    its own gate logits (``moe_routers``), then ``routed_serve``."""
+    from repro_torch.configs.base import get_config
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on; the MoE check assumes "
+                             "full float32")
+    want, routing = load_constants(MOE_CONSTANTS, MOE_ROUTING, moe_setup())
+    cfg = moe_config(get_config(MOE_ARCH))
+    routers = moe_routers(dev, cfg, routing, card)
+    model, n_params = routed_model("moe", cfg, dev)
+    out = routed_serve("moe", dev, counts, model, want, routing, card)
+    return dict(out, routers=routers, n_params=n_params)
+
+
+def phase_mla(dev, counts: dict, card: str) -> dict:
+    """deepseek-v2 at full width and DS_LAYERS layers (the dense prefix,
+    then MLA and the MoE) on ``numpy_params`` weights: the routers on the
+    card against the JAX package's routing of layer 1's gate logits and of
+    the skewed set (a price must rise there); one prefill's hidden state
+    after layer 0 and layer 0's cache rows against JAX's
+    (``check_layer0``: MLA prefill, K6 at dh 192 / dv 128, RoPE, both
+    norms, the cache layout and the dense prefix, free of routing); then
+    ``routed_serve``."""
+    from repro_torch.configs.base import get_config
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on; the MLA check assumes "
+                             "full float32")
+    want, routing = load_constants(MLA_CONSTANTS, MLA_ROUTING, mla_setup())
+    cfg = mla_config(get_config(MLA_ARCH))
+    routers = moe_routers(dev, cfg, routing, card, "mla")
+    if not routers["auction skewed"]["max_price"] > 0:
+        raise AssertionError("mla: the auction raised no price on the "
+                             "skewed set")
+    model, n_params = routed_model("mla", cfg, dev)
+    prompts = torch.tensor(serve_prompts(cfg.vocab, SERVE_B, SERVE_S),
+                           device=dev)
+    layer0 = check_layer0(layer0_rows(model, prompts, SERVE_S + SERVE_NEW),
+                          routing)
+    log(f"[mla] layer 0 after one prefill, at {len(sample_positions())} "
+        f"positions of each request: hidden state and c_kv / k_rope cache "
+        f"rows within LOGIT_TOL of JAX's (error / tolerance {layer0})")
+    out = routed_serve("mla", dev, counts, model, want, routing, card)
+    return dict(out, routers=routers, n_params=n_params, layer0=layer0)
 
 
 def nvidia_smi() -> str:
@@ -2664,6 +2923,13 @@ def main() -> int:
     log(f"[moe] done in {time.perf_counter() - t_moe:.1f} s")
     ms, n = moe["prefill"]["port_kernels"]["flash_fwd_mma"]
     kernels["flash_attention_fwd"]["moe_shape"].update(
+        prefill_ms_per_launch=ms / n, prefill_launches=n)
+    del moe
+    t_mla = time.perf_counter()
+    mla = phase_mla(dev, counts, card)
+    log(f"[mla] done in {time.perf_counter() - t_mla:.1f} s")
+    ms, n = mla["prefill"]["port_kernels"]["flash_fwd_mma"]
+    kernels["flash_attention_fwd"]["mla_shape"].update(
         prefill_ms_per_launch=ms / n, prefill_launches=n)
     # K1-K3 inside each profiled grid solve, under the wrapper's name
     for name, symbol in (("grid_push_decide", "grid_push_decide_kernel"),

@@ -25,9 +25,10 @@ Model weights cross the same way:
 * ``load_params`` copies such a tree (numpy or JAX leaves) into the
   port's ``Model``, unstacking ``body`` into per-layer blocks and
   transposing each ``x @ W`` matrix into its ``nn.Linear`` (an MoE's
-  ``gate`` and ``shared`` MLP too); the MoE's 3-D expert tensors ``w1``,
-  ``w2``, ``w3`` keep the JAX layout and are copied as they are;
-  ``model_from_params`` builds the model and loads it.
+  ``gate`` and ``shared`` MLP, MLA's ``wq_a``, ``wq_b``, ``wkv_a`` and
+  ``wo`` too); the 3-D tensors keep the JAX layout and are copied as they
+  are: the MoE's experts ``w1``, ``w2``, ``w3`` and MLA's ``wk_b``,
+  ``wv_b``; ``model_from_params`` builds the model and loads it.
 
 Imports neither ``jax`` nor ``repro``.
 """
@@ -120,6 +121,26 @@ def _moe_tree(cfg, normal) -> dict:
     return ffn
 
 
+def _mla_tree(cfg, normal, ones) -> dict:
+    """``init_mla``'s leaves, with its stds (``fan_in = shape[0]``: the
+    3-D ``wk_b`` and ``wv_b`` get ``kv_lora ** -0.5``)."""
+    m, D, H = cfg.mla, cfg.d_model, cfg.n_heads
+    qd = m.qk_nope_dim + m.qk_rope_dim
+    return {"wq_a": normal((D, m.q_lora_rank), dense_std(D)),
+            "q_norm": ones((m.q_lora_rank,)),
+            "wq_b": normal((m.q_lora_rank, H * qd),
+                           dense_std(m.q_lora_rank)),
+            "wkv_a": normal((D, m.kv_lora_rank + m.qk_rope_dim),
+                            dense_std(D)),
+            "kv_norm": ones((m.kv_lora_rank,)),
+            "wk_b": normal((m.kv_lora_rank, H, m.qk_nope_dim),
+                           dense_std(m.kv_lora_rank)),
+            "wv_b": normal((m.kv_lora_rank, H, m.v_dim),
+                           dense_std(m.kv_lora_rank)),
+            "wo": normal((H * m.v_dim, D),
+                         depth_scaled_std(H * m.v_dim, cfg.n_layers))}
+
+
 def _sublayer_tree(cfg, spec, normal, ones, zeros) -> dict:
     """One sublayer of the JAX params tree (``_init_sublayer``'s keys)."""
     D, H, KV, dh, F = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.dh,
@@ -131,14 +152,17 @@ def _sublayer_tree(cfg, spec, normal, ones, zeros) -> dict:
             p["b"] = zeros((D,))
         return p
 
-    mixer = {"wq": normal((D, H * dh), dense_std(D)),
-             "wk": normal((D, KV * dh), dense_std(D)),
-             "wv": normal((D, KV * dh), dense_std(D)),
-             "wo": normal((H * dh, D),
-                          depth_scaled_std(H * dh, cfg.n_layers))}
-    if cfg.qk_norm:
-        mixer["q_g"] = ones((dh,))
-        mixer["k_g"] = ones((dh,))
+    if cfg.attn_type == "mla":
+        mixer = _mla_tree(cfg, normal, ones)
+    else:
+        mixer = {"wq": normal((D, H * dh), dense_std(D)),
+                 "wk": normal((D, KV * dh), dense_std(D)),
+                 "wv": normal((D, KV * dh), dense_std(D)),
+                 "wo": normal((H * dh, D),
+                              depth_scaled_std(H * dh, cfg.n_layers))}
+        if cfg.qk_norm:
+            mixer["q_g"] = ones((dh,))
+            mixer["k_g"] = ones((dh,))
     p = {"norm1": norm(), "mixer": mixer}
     if spec[1]:
         p["norm2"] = norm()
@@ -192,6 +216,11 @@ def _vector(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, copy=True))
 
 
+def _as_is(x) -> torch.Tensor:
+    """A leaf in the JAX layout (no copy where numpy's is writable)."""
+    return torch.from_numpy(np.require(x, requirements=["C", "W"]))
+
+
 def _linears(prefix: str, tree: dict) -> dict:
     """x @ W in JAX, W.T in nn.Linear."""
     return {f"{prefix}.{k}.weight": _matrix(x) for k, x in tree.items()}
@@ -203,8 +232,10 @@ def _sublayer_state(prefix: str, tree: dict) -> dict:
         for k, x in tree.get(norm, {}).items():
             sd[f"{prefix}.{norm}.{k}"] = _vector(x)
     for k, x in tree["mixer"].items():
-        if k in ("q_g", "k_g"):
+        if k in ("q_g", "k_g", "q_norm", "kv_norm"):
             sd[f"{prefix}.mixer.{k}"] = _vector(x)
+        elif k in ("wk_b", "wv_b"):     # MLA's (kv_lora, H, ·), the JAX layout
+            sd[f"{prefix}.mixer.{k}"] = _as_is(x)
         else:
             sd[f"{prefix}.mixer.{k}.weight"] = _matrix(x)
     ffn = tree.get("ffn", {})
@@ -212,8 +243,7 @@ def _sublayer_state(prefix: str, tree: dict) -> dict:
         sd[f"{prefix}.ffn.gate.weight"] = _matrix(ffn["gate"])
         for k in ("w1", "w2", "w3"):
             if k in ffn:    # (E, D, F) / (E, F, D), the JAX layout
-                sd[f"{prefix}.ffn.{k}"] = torch.from_numpy(
-                    np.require(ffn[k], requirements=["C", "W"]))
+                sd[f"{prefix}.ffn.{k}"] = _as_is(ffn[k])
         if "shared" in ffn:
             sd.update(_linears(f"{prefix}.ffn.shared", ffn["shared"]))
     else:

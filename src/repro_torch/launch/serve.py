@@ -6,6 +6,8 @@
       --smoke --batch 2 --prompt-len 8 --max-new 4 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch phi3.5-moe-42b-a6.6b --n-layers 2 --batch 8 --prompt-len 1024
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch deepseek-v2-236b --n-layers 2 --batch 8 --prompt-len 1024
 
 Counterpart of ``repro/launch/serve.py``: random weights and prompts from
 ``--seed`` (torch generators, so not the JAX CLI's numbers), the same
@@ -13,8 +15,9 @@ three report lines. Runs on the card unless ``--device cpu`` is given;
 there is no mesh, so the JAX CLI's ``--model-parallel`` has no
 counterpart, and one card holds a large model only with its depth cut:
 ``--n-layers`` keeps the config's widths and takes that many layers
-(phi3.5-moe's 32 float32 layers need 168 GB). The first prefill includes
-building the kernels.
+(phi3.5-moe's 32 float32 layers need 168 GB; deepseek-v2's 60 about
+944 GB, and its first 2 layers, the dense prefix and one MLA + MoE
+layer, 21.4 GB). The first prefill includes building the kernels.
 """
 from __future__ import annotations
 

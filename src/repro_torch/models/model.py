@@ -1,4 +1,4 @@
-"""LM assembly: layer plan -> blocks -> logits, for the dense GQA families.
+"""LM assembly: layer plan -> blocks -> logits, for the attention families.
 
 Counterpart of ``repro/models/model.py``. The JAX package stacks each
 period of the layer plan and scans over the periods; the port holds one
@@ -12,11 +12,15 @@ port has none.
 
 Runs the dense and token-input families (smollm-135m, chameleon-34b,
 command-r-plus-104b, minitron-8b, nemotron-4-340b) and the MoE family
-(phi3.5-moe): where the layer plan says ``"moe"`` the block's FFN is a
-``models.mlp.MoE``, routed by the auction (``router="flow"``) or top-k in
-prefill and by top-k in decode, as the reference. Mamba, the hybrid and
-encoder stacks, MLA, input frontends and the int8 cache wait for ROADMAP
-M9: ``check_supported`` raises ``NotImplementedError`` for them.
+(phi3.5-moe, deepseek-v2): where the layer plan says ``"moe"`` the
+block's FFN is a ``models.mlp.MoE``, routed by the auction
+(``router="flow"``) or top-k in prefill and by top-k in decode, as the
+reference; a dense prefix (deepseek's first layer) is a plain ``"mlp"``
+in the plan. ``cfg.attn_type == "mla"`` makes every mixer an
+``models.attention.MLA``, whose cache holds ``c_kv`` and ``k_rope``.
+Mamba, the hybrid and encoder stacks, input frontends and the int8 cache
+wait for ROADMAP M9: ``check_supported`` raises ``NotImplementedError``
+for them.
 """
 from __future__ import annotations
 
@@ -29,7 +33,8 @@ from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.attention import GQA, KVCache, init_gqa
+from repro_torch.models.attention import (GQA, MLA, KVCache, init_gqa,
+                                         init_mla)
 from repro_torch.models.layers import Norm, dense_std, linear, normal_
 from repro_torch.models.mlp import MLP, MoE, init_mlp, init_moe
 
@@ -77,8 +82,6 @@ def check_supported(cfg: ModelConfig) -> None:
         missing.append("the encoder stack")
     if cfg.frontend_dim:
         missing.append("input frontends")
-    if cfg.attn_type == "mla":
-        missing.append("MLA attention")
     if cfg.kv_quant:
         missing.append("the int8 KV cache (kv_quant)")
     if missing:
@@ -91,15 +94,17 @@ def check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 class Block(nn.Module):
-    """One layer: ``norm1`` -> GQA ``mixer`` -> residual, then (where the
-    plan has an FFN) ``norm2`` -> ``ffn`` (an ``MLP``, or a ``MoE`` where
-    the plan says ``"moe"``) -> residual."""
+    """One layer: ``norm1`` -> ``mixer`` (``MLA`` where ``cfg.attn_type``
+    is ``"mla"``, else ``GQA``) -> residual, then (where the plan has an
+    FFN) ``norm2`` -> ``ffn`` (an ``MLP``, or a ``MoE`` where the plan says
+    ``"moe"``) -> residual."""
 
     def __init__(self, cfg: ModelConfig, spec, device=None, dtype=None):
         super().__init__()
         _, ffn = spec
         self.norm1 = Norm(cfg.d_model, cfg.norm, device, dtype)
-        self.mixer = GQA(cfg, device, dtype)
+        self.mixer = (MLA if cfg.attn_type == "mla" else GQA)(cfg, device,
+                                                              dtype)
         if ffn:
             self.norm2 = Norm(cfg.d_model, cfg.norm, device, dtype)
             self.ffn = (MoE if ffn == "moe" else MLP)(cfg, device=device,
@@ -145,13 +150,15 @@ def init_model(cfg: ModelConfig, generator: torch.Generator, *, device=None,
     """A model with random weights drawn from ``generator``: the JAX
     ``init_model``'s standard deviations (``fan_in ** -0.5``; the embedding
     ``d_model ** -0.5``; ``wo`` and ``w2`` depth-scaled; norm gains 1 and
-    biases 0; the MoE's as ``init_moe`` says). Runs on ``device`` (default cuda); the generator may live
-    on the CPU."""
+    biases 0; MLA's and the MoE's as ``init_mla`` and ``init_moe`` say).
+    Runs on ``device`` (default cuda); the generator may live on the
+    CPU."""
     model = Model(cfg, device=device, dtype=dtype)
     # d^-0.5 embedding scale keeps tied-head logits ~N(0,1) at init
     normal_(model.embed, cfg.d_model ** -0.5, generator)
     for block in model.layers:
-        init_gqa(block.mixer, generator)
+        (init_mla if isinstance(block.mixer, MLA) else init_gqa)(
+            block.mixer, generator)
         if isinstance(getattr(block, "ffn", None), MoE):
             init_moe(block.ffn, generator)
         elif hasattr(block, "ffn"):
@@ -203,9 +210,15 @@ def apply_model(model: Model, batch, *, caches=None, decode: bool = False,
 # ---------------------------------------------------------------------------
 
 def _layer_cache(cfg, spec, B, S_max, dtype, device) -> KVCache:
-    shape = (B, S_max, cfg.n_kv_heads, cfg.dh)
-    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
-                   torch.zeros(shape, dtype=dtype, device=device),
+    """GQA: k and v ``(B, S_max, KV, dh)``; MLA: ``c_kv`` ``(B, S_max,
+    kv_lora)`` and ``k_rope`` ``(B, S_max, rope)``."""
+    if cfg.attn_type == "mla":
+        shapes = ((B, S_max, cfg.mla.kv_lora_rank),
+                  (B, S_max, cfg.mla.qk_rope_dim))
+    else:
+        shapes = ((B, S_max, cfg.n_kv_heads, cfg.dh),) * 2
+    return KVCache(*(torch.zeros(s, dtype=dtype, device=device)
+                     for s in shapes),
                    torch.tensor(0, dtype=torch.int32, device=device))
 
 

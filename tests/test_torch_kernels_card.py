@@ -42,6 +42,7 @@ from repro_torch.kernels.grid_push import kernel as gk
 from repro_torch.kernels.grid_push.ops import tile_schedule, tile_shape
 from repro_torch.kernels.grid_push.ref import (grid_push_decide_ref,
                                                grid_push_decide_sched_ref)
+from repro_torch.models.attention import MLA, KVCache, init_mla
 from repro_torch.models.model import apply_model
 from repro_torch.serve.engine import greedy_generate
 
@@ -772,6 +773,9 @@ K6_SWEEP = [
     ((1, 129, 129, 4, 2, 192, 128), False),
     ((1, 100, 100, 2, 2, 256, 256), False),
     ((1, 33, 47, 2, 1, 5, 3), True),
+    # deepseek-v2's MLA prefill at the smoke's 8 x 1024 tokens: 128 heads,
+    # qk 128 + 64, v 128 (flash_fwd_mma)
+    ((8, 1024, 1024, 128, 128, 192, 128), True),
 ]
 
 
@@ -938,3 +942,71 @@ def test_exact_route_on_card_equals_cpu(cuda_device):
     want = exact_route(torch.tensor(s), 8)
     assert torch.equal(got.dispatch.cpu(), want.dispatch)
     assert bits_equal(got.prices.cpu(), want.prices)
+
+
+def test_mla_layer_on_card_close_to_cpu(cuda_device):
+    """One deepseek-v2 MLA layer at full width (d_model 5120, 128 heads,
+    q_lora 1536, kv_lora 512, qk 128 + 64, v 128): a prefill of 256
+    tokens into 264-slot caches, then one decode step, on the card against
+    the same module and weights on the CPU (the plain scan). Outputs and
+    the ``c_kv`` / ``k_rope`` caches within 1e-4 x their largest |value|
+    (float32 on both sides, summed in other orders); K6 launched once in
+    the prefill, never in the decode step."""
+    cfg = get_config("deepseek-v2-236b")
+    m = cfg.mla
+    cpu = init_mla(MLA(cfg, device="cpu"), torch.Generator().manual_seed(0))
+    card = MLA(cfg, device=cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    B, S, T = 2, 256, 264
+    x = torch.randn(B, S + 1, cfg.d_model,
+                    generator=torch.Generator().manual_seed(1))
+    outs = {}
+    for dev, layer in ((cuda_device, card), (torch.device("cpu"), cpu)):
+        cache = KVCache(torch.zeros(B, T, m.kv_lora_rank, device=dev),
+                        torch.zeros(B, T, m.qk_rope_dim, device=dev),
+                        torch.tensor(0, dtype=torch.int32, device=dev))
+        xd = x.to(dev)
+        with torch.inference_mode():
+            before = fak.flash_attention_fwd.launches
+            pre, cache = layer(xd[:, :S], positions=torch.arange(
+                S, device=dev), cache=cache, decode=False)
+            mid = fak.flash_attention_fwd.launches
+            dec, cache = layer(xd[:, S:], positions=torch.tensor(
+                [S], device=dev), cache=cache, decode=True)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+        after = fak.flash_attention_fwd.launches
+        assert (mid - before, after - mid) == (
+            (1, 0) if dev.type == "cuda" else (0, 0))
+        assert int(cache.length) == S + 1
+        outs[dev.type] = [t.cpu() for t in (pre, dec, cache.k, cache.v)]
+    for got, want, what in zip(outs["cuda"], outs["cpu"],
+                               ("prefill", "decode", "c_kv", "k_rope")):
+        assert got.shape == want.shape, what
+        err = (got - want).abs().max().item()
+        assert err <= 1e-4 * want.abs().max().item(), (what, err)
+
+
+def test_mla_stop_rule_on_committed_constants(cuda_device):
+    """The committed deepseek constants (``tests/torch_smoke_deepseek.npz``):
+    the card's auction routes JAX's layer-1 gate logits as JAX did, and
+    ``phase_mla``'s stops computed from the card's demand and prices are
+    those from JAX's; where they stop a request at step 0, the pinned run
+    has every decode step's routing to compare."""
+    import chip_smoke
+    z = dict(np.load(chip_smoke.MLA_ROUTING))
+    cfg = chip_smoke.mla_config(get_config(chip_smoke.MLA_ARCH))
+    e = cfg.moe
+    got = auction_route(torch.tensor(z["prefill_scores"][0],
+                                     device=cuda_device), e.top_k,
+                        int(z["capacity"]), n_iters=e.router_iters)
+    assert np.array_equal(got.dispatch.cpu().numpy(),
+                          z["prefill_auction_dispatch"][0])
+    card = dict(z, prefill_auction_demand=got.demand.cpu().numpy()[None],
+                prefill_auction_prices=got.prices.cpu().numpy()[None])
+    stops, why = chip_smoke.moe_stops(z)
+    assert chip_smoke.moe_stops(card) == (stops, why)
+    if chip_smoke.local_marks(z, 0) is None and z["prefill_unstable"][0]:
+        assert stops == [0] * chip_smoke.SERVE_B, why
+    stable = dict(z, prefill_unstable=np.zeros_like(z["prefill_unstable"]))
+    assert min(chip_smoke.moe_stops(stable)[0]) > 0

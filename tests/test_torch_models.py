@@ -1,5 +1,5 @@
-"""The port's configs, layers, dense GQA and MoE models against the JAX
-package.
+"""The port's configs, layers, dense GQA, MLA and MoE models against the
+JAX package.
 
 Configs are pure data and must be equal. Weights cross from the JAX
 layout (``repro_torch.interop``): the same ``numpy_params`` tree goes into
@@ -8,7 +8,9 @@ run float32 on the CPU and differ only in summation order, which at smoke
 size moves logits by about 1e-6 of their largest magnitude. Tolerance:
 ``LOGIT_TOL`` x the largest |logit| (absolute), ``1e-5`` for the
 building blocks. The MoE layer is held to ``MOE_TOL`` x its largest
-|output|, and its routers' dispatch to the JAX package's exactly.
+|output|, and its routers' dispatch to the JAX package's exactly; the MLA
+layer (outputs and its ``c_kv`` / ``k_rope`` cache) to ``MLA_TOL`` x each
+leaf's largest |value|.
 """
 import dataclasses
 
@@ -28,20 +30,23 @@ from repro_torch.configs.base import get_config, list_configs, smoke_variant
 from repro_torch.interop import load_params, model_from_params, numpy_params
 from repro_torch.models import layers as tlayers
 from repro_torch.models import model as tmodel
+from repro.models import attention as jattn
 from repro.models import mlp as jmlp
 from repro_torch.core.routing import auction_route, topk_route
 from repro_torch.models import mlp as tmlp
-from repro_torch.models.attention import KVCache, init_mla, mla_apply
-from repro_torch.models.mlp import MoE, init_moe, moe_apply
+from repro_torch.models.attention import MLA, KVCache, init_mla, mla_apply
+from repro_torch.models.mlp import MLP, MoE, init_moe, moe_apply
 
 LOGIT_TOL = 1e-5
 BLOCK_TOL = 1e-5
 MOE_TOL = 1e-5
+MLA_TOL = 1e-5
 PHI = "phi3.5-moe-42b-a6.6b"
-RUNNABLE = ["chameleon-34b", "command-r-plus-104b", "minitron-8b",
+DEEPSEEK = "deepseek-v2-236b"
+RUNNABLE = ["chameleon-34b", "command-r-plus-104b", DEEPSEEK, "minitron-8b",
             "nemotron-4-340b", PHI, "smollm-135m"]
-UNPORTED = {"deepseek-v2-236b": "MLA", "hubert-xlarge": "encoder",
-            "jamba-v0.1-52b": "mamba", "mamba2-370m": "mamba"}
+UNPORTED = {"hubert-xlarge": "encoder", "jamba-v0.1-52b": "mamba",
+            "mamba2-370m": "mamba"}
 
 
 def _cfgs(arch):
@@ -82,14 +87,19 @@ def test_config_and_plan_equal_jax(arch):
         assert tmodel.plan_period(a) == jmodel.plan_period(b)
 
 
-@pytest.mark.parametrize("arch", sorted([*UNPORTED, PHI]))
+@pytest.mark.parametrize("arch", sorted([*UNPORTED, PHI, DEEPSEEK]))
 def test_unported_family_raises(arch):
-    """Each family the port lacks raises naming what it lacks; phi3.5-moe,
-    which the port now runs, builds and gets the JAX params tree."""
+    """Each family the port lacks raises naming what it lacks; phi3.5-moe
+    and deepseek-v2, which the port now runs, build (MoE layers; MLA
+    mixers after a dense prefix) and get the JAX params tree."""
     cfg, jcfg = _cfgs(arch)
-    if arch == PHI:
+    if arch in (PHI, DEEPSEEK):
         model = tmodel.init_model(cfg, torch.Generator(), device="cpu")
-        assert all(isinstance(b.ffn, MoE) for b in model.layers)
+        n_pre = cfg.n_dense_prefix
+        assert all(isinstance(b.ffn, MoE) for b in model.layers[n_pre:])
+        assert all(isinstance(b.ffn, MLP) for b in model.layers[:n_pre])
+        assert all(isinstance(b.mixer, MLA) == (arch == DEEPSEEK)
+                   for b in model.layers)
         theirs = jmodel.init_model(jcfg, jax.random.PRNGKey(0))[0]
         assert (jax.tree.structure(numpy_params(cfg))
                 == jax.tree.structure(theirs))
@@ -102,12 +112,25 @@ def test_unported_family_raises(arch):
 
 
 def test_unported_pieces_raise():
+    """The int8 cache still raises; ``init_mla`` and ``mla_apply``, ported,
+    build a layer and run it (prefill into a cache, then a decode step)."""
     cfg = dataclasses.replace(_cfgs("smollm-135m")[0], kv_quant=True)
     with pytest.raises(NotImplementedError, match="int8 KV cache"):
         tmodel.Model(cfg, device="cpu")
-    for fn in (init_mla, mla_apply):
-        with pytest.raises(NotImplementedError, match="ROADMAP M9"):
-            fn()
+    cfg = _cfgs(DEEPSEEK)[0]
+    p = init_mla(MLA(cfg, device="cpu"), torch.Generator().manual_seed(0))
+    cache = tmodel.init_caches(cfg, 2, 8, dtype=torch.float32,
+                               device="cpu")[0]
+    x = torch.randn(2, 7, cfg.d_model, generator=torch.Generator())
+    with torch.no_grad():
+        out, cache = mla_apply(p, x[:, :6], cfg, positions=torch.arange(6),
+                               cache=cache, decode=False)
+        step, cache = mla_apply(p, x[:, 6:], cfg,
+                                positions=torch.tensor([6]), cache=cache,
+                                decode=True)
+    assert out.shape == (2, 6, cfg.d_model) and step.shape == (2, 1,
+                                                               cfg.d_model)
+    assert int(cache.length) == 7 and torch.isfinite(out).all()
 
 
 def test_entry_points_default_to_the_card():
@@ -228,6 +251,17 @@ def test_apply_model_matches_jax(arch, mode):
     _close(got.logits.numpy(), want.logits, arch)
 
 
+def _jax_layer_caches(jcfg, caches, field):
+    """A JAX cache tree's ``field`` per layer, in the port's layer order
+    (``prefix`` first, then ``body["sub{j}"]`` at each period)."""
+    period = jmodel.plan_period(jcfg)
+    n_periods = (jcfg.n_layers - jcfg.n_dense_prefix) // period
+    out = [np.asarray(getattr(c, field)) for c in caches["prefix"]]
+    out += [np.asarray(getattr(caches["body"][j], field))[r]
+            for r in range(n_periods) for j in range(period)]
+    return np.stack(out)
+
+
 @pytest.mark.parametrize("arch", RUNNABLE)
 def test_prefill_then_decode_step_match_jax(arch):
     """Prefill S - 1 tokens into S + 4 caches, then decode the last one:
@@ -251,7 +285,7 @@ def test_prefill_then_decode_step_match_jax(arch):
         _close(pre.logits.numpy(), jpre.logits, "prefill")
         for field in ("k", "v"):
             got = np.stack([getattr(c, field).numpy() for c in pre.caches])
-            _close(got, getattr(jpre.caches["body"][0], field), field)
+            _close(got, _jax_layer_caches(jcfg, jpre.caches, field), field)
         assert all(int(c.length) == S - 1 for c in pre.caches)
         dec = tmodel.apply_model(
             model, {"tokens": torch.tensor(toks[:, -1:])}, caches=pre.caches,
@@ -261,7 +295,7 @@ def test_prefill_then_decode_step_match_jax(arch):
                for c in dec.caches)
     for field in ("k", "v"):
         got = np.stack([getattr(c, field).numpy() for c in dec.caches])
-        _close(got, getattr(jdec.caches["body"][0], field), field)
+        _close(got, _jax_layer_caches(jcfg, jdec.caches, field), field)
 
 
 # ---------------------------------------------------------------------------
@@ -358,3 +392,137 @@ def test_moe_drops_past_capacity_and_keeps_the_rest():
     assert np.array_equal(np.all(got == 0, axis=-1), zero)
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=MOE_TOL * np.abs(want).max())
+
+
+# ---------------------------------------------------------------------------
+# MLA and the dense prefix
+# ---------------------------------------------------------------------------
+
+def _mla_case(seed=5):
+    """deepseek's smoke variant, its layer-0 MLA from ``numpy_params``: the
+    JAX tree of that mixer, and the port's ``MLA`` holding it."""
+    cfg, jcfg = _cfgs(DEEPSEEK)
+    params = numpy_params(cfg, seed=seed)
+    model = model_from_params(cfg, params, "cpu")
+    return cfg, jcfg, params["prefix"][0]["mixer"], model.layers[0].mixer
+
+
+def _mla_cache(cfg, rng, B, T, length):
+    m = cfg.mla
+    return (rng.normal(size=(B, T, m.kv_lora_rank)).astype(np.float32),
+            rng.normal(size=(B, T, m.qk_rope_dim)).astype(np.float32),
+            np.int32(length))
+
+
+def _mla_both(cfg, jcfg, tree, mla, x, pos, cache, decode):
+    """The JAX ``mla_apply`` and the port's on the same inputs (the port
+    on its own copy of the cache, which it writes in place)."""
+    want = jattn.mla_apply(_pairs(tree), jnp.asarray(x), jcfg, Sharder(),
+                           positions=jnp.asarray(pos),
+                           cache=None if cache is None else jattn.KVCache(
+                               *(jnp.asarray(c) for c in cache)),
+                           decode=decode)
+    tc = None if cache is None else KVCache(
+        *(torch.tensor(np.array(c)) for c in cache))
+    with torch.no_grad():
+        got = mla_apply(mla, torch.tensor(x), cfg,
+                        positions=torch.tensor(pos), cache=tc, decode=decode)
+    return got, want
+
+
+def _mla_close(got, want, what):
+    want = np.asarray(want)
+    np.testing.assert_allclose(np.asarray(got), want, rtol=0,
+                               atol=MLA_TOL * np.abs(want).max(),
+                               err_msg=what)
+
+
+@pytest.mark.parametrize("mode", ["prefill", "prefill into a cache",
+                                  "decode at 0", "decode at 9",
+                                  "decode at 23", "decode clamped at S_max"])
+def test_mla_apply_matches_jax(mode):
+    """``mla_apply`` against the JAX ``mla_apply`` on the same weights and
+    inputs: prefill (expanded K/V through the plain scan) with and without
+    a cache of ``S_max`` 24, and the absorbed decode at several cache
+    lengths, up to a full cache, whose write both clamp to ``S_max - 1``.
+    Outputs, ``c_kv``, ``k_rope`` and ``length`` leaf for leaf."""
+    cfg, jcfg, tree, mla = _mla_case()
+    rng = np.random.default_rng(6)
+    B, T = 2, 24
+    decode = mode.startswith("decode")
+    if decode:
+        length = {"decode at 0": 0, "decode at 9": 9, "decode at 23": 23,
+                  "decode clamped at S_max": T}[mode]
+        S, pos = 1, np.array([length])
+        cache = _mla_cache(cfg, rng, B, T, length)
+    else:
+        S, pos = 16, np.arange(16)
+        cache = (None if mode == "prefill" else
+                 (np.zeros((B, T, cfg.mla.kv_lora_rank), np.float32),
+                  np.zeros((B, T, cfg.mla.qk_rope_dim), np.float32),
+                  np.int32(0)))
+    x = rng.normal(size=(B, S, cfg.d_model)).astype(np.float32)
+    (out, tc), (jout, jc) = _mla_both(cfg, jcfg, tree, mla, x, pos, cache,
+                                      decode)
+    assert tuple(out.shape) == jout.shape == (B, S, cfg.d_model)
+    _mla_close(out.numpy(), jout, "out")
+    if cache is None:
+        assert tc is None and jc is None
+        return
+    _mla_close(tc.k.numpy(), jc.k, "c_kv")
+    _mla_close(tc.v.numpy(), jc.v, "k_rope")
+    assert int(tc.length) == int(jc.length)
+    if mode == "decode clamped at S_max":      # the last slot was written
+        assert not np.array_equal(tc.k.numpy()[:, -1], cache[0][:, -1])
+
+
+def test_mla_decode_equals_prefill():
+    """On the port alone: prefilling 13 tokens into a cache, then decoding
+    3 one at a time (the absorbed form against ``c_kv`` and ``k_rope``),
+    gives the outputs of one prefill of all 16 (expanded K/V, plain scan),
+    and the same cache."""
+    cfg, _, _, mla = _mla_case()
+    x = torch.tensor(np.random.default_rng(7).normal(
+        size=(2, 16, cfg.d_model)).astype(np.float32))
+    with torch.no_grad():
+        cache = tmodel.init_caches(cfg, 2, 16, dtype=torch.float32,
+                                   device="cpu")[0]
+        full, full_cache = mla_apply(mla, x, cfg,
+                                     positions=torch.arange(16),
+                                     cache=cache, decode=False)
+        full_c = [t.clone() for t in full_cache[:2]]
+        cache = tmodel.init_caches(cfg, 2, 16, dtype=torch.float32,
+                                   device="cpu")[0]
+        out, cache = mla_apply(mla, x[:, :13], cfg,
+                               positions=torch.arange(13), cache=cache,
+                               decode=False)
+        steps = [out]
+        for t in range(13, 16):
+            o, cache = mla_apply(mla, x[:, t:t + 1], cfg,
+                                 positions=torch.tensor([t]), cache=cache,
+                                 decode=True)
+            steps.append(o)
+    assert int(cache.length) == 16
+    _mla_close(torch.cat(steps, 1).numpy(), full.numpy(), "outputs")
+    for got, want, what in zip(cache[:2], full_c, ("c_kv", "k_rope")):
+        _mla_close(got.numpy(), want.numpy(), what)
+
+
+def test_deepseek_plan_is_a_dense_prefix_then_moe():
+    """deepseek-v2's first layer is the dense prefix (an ``MLP`` FFN of
+    d_ff 12,288), every later one MoE; every mixer is MLA, its cache
+    ``(B, S_max, kv_lora)`` and ``(B, S_max, rope)``. At full width (the
+    plan and cache shapes only) and in the smoke model."""
+    full = dataclasses.replace(get_config(DEEPSEEK), n_layers=2)
+    assert tmodel.layer_plan(full) == [("attn", "mlp"), ("attn", "moe")]
+    cfg = _cfgs(DEEPSEEK)[0]
+    model = tmodel.Model(cfg, device="cpu")
+    assert isinstance(model.layers[0].ffn, MLP)
+    assert model.layers[0].ffn.w1.out_features == cfg.d_ff
+    assert all(isinstance(b.ffn, MoE) for b in model.layers[1:])
+    assert all(isinstance(b.mixer, MLA) for b in model.layers)
+    caches = tmodel.init_caches(cfg, 2, 10, dtype=torch.float32,
+                                device="cpu")
+    assert all(tuple(c.k.shape) == (2, 10, cfg.mla.kv_lora_rank)
+               and tuple(c.v.shape) == (2, 10, cfg.mla.qk_rope_dim)
+               for c in caches)

@@ -9,6 +9,7 @@ largest logit at this size. The JAX side steps with
 ``torch_smoke_constants.jax_generate``, which must give the JAX
 ``greedy_generate``'s tokens.
 """
+import dataclasses
 import json
 import pathlib
 import subprocess
@@ -35,8 +36,9 @@ from repro_torch.serve.engine import greedy_generate
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SERVE_TOL = 1e-5
-RUNNABLE = ["chameleon-34b", "command-r-plus-104b", "minitron-8b",
-            "nemotron-4-340b", "phi3.5-moe-42b-a6.6b", "smollm-135m"]
+RUNNABLE = ["chameleon-34b", "command-r-plus-104b", "deepseek-v2-236b",
+            "minitron-8b", "nemotron-4-340b", "phi3.5-moe-42b-a6.6b",
+            "smollm-135m"]
 
 
 @pytest.mark.parametrize("arch", RUNNABLE)
@@ -132,6 +134,45 @@ def test_check_serve_catches_wrong_attention(fault, monkeypatch):
         chip_smoke.check_serve(bad, want)
 
 
+@pytest.mark.parametrize("fault", ["scale of cfg.dh", "rope half of k dropped"])
+def test_check_layer0_and_serve_catch_wrong_mla(fault, monkeypatch):
+    """The MLA phase's checks have teeth: scaling the prefill scores by
+    ``cfg.dh ** -0.5`` (40 at full width) in place of the qk width's
+    (``(nope + rope) ** -0.5``), or dropping the rope half of every key,
+    moves the hidden state after layer 0 past ``check_layer0``'s
+    tolerance and the logits past ``check_serve``'s. deepseek's smoke
+    variant at 2 layers, with ``head_dim`` 40 so that ``cfg.dh`` differs
+    from the qk width (32) as it does at full width."""
+    from repro_torch.models import attention
+    cfg = dataclasses.replace(smoke_variant(get_config("deepseek-v2-236b")),
+                              n_layers=2, head_dim=40)
+    nope = cfg.mla.qk_nope_dim
+    assert cfg.dh != nope + cfg.mla.qk_rope_dim
+    model = model_from_params(cfg, numpy_params(cfg, seed=0), device="cpu")
+    prompts = torch.tensor(chip_smoke.serve_prompts(cfg.vocab, 2, 128))
+    rows = chip_smoke.layer0_rows(model, prompts, 131)
+    steps, *_ = chip_smoke.port_serve(model, prompts, 3, 131)
+    want_rows = {f"layer0_{k}": v for k, v in rows.items()}
+    want = [chip_smoke.top5_records(lg) for _, lg in steps]
+    chip_smoke.check_layer0(rows, want_rows)
+    chip_smoke.check_serve(steps, want)
+    right = attention._flash_attend
+    wrong = {
+        "scale of cfg.dh": lambda q, k, v, scale, **kw: right(
+            q, k, v, scale=cfg.dh ** -0.5, **kw),
+        "rope half of k dropped": lambda q, k, v, **kw: right(
+            q, torch.cat([k[..., :nope], torch.zeros_like(k[..., nope:])],
+                         -1), v, **kw),
+    }[fault]
+    monkeypatch.setattr(attention, "_flash_attend", wrong)
+    bad_rows = chip_smoke.layer0_rows(model, prompts, 131)
+    bad, *_ = chip_smoke.port_serve(model, prompts, 3, 131)
+    with pytest.raises(AssertionError, match="layer 0 hidden"):
+        chip_smoke.check_layer0(bad_rows, want_rows)
+    with pytest.raises(AssertionError):
+        chip_smoke.check_serve(bad, want)
+
+
 def test_serve_constants_fit_the_smoke():
     """The committed constants were made for the smoke's serve setup."""
     want = json.loads(chip_smoke.SERVE_CONSTANTS.read_text())
@@ -168,6 +209,42 @@ def test_moe_constants_fit_the_smoke():
     assert z["skewed_auction_prices"].max() > 0   # the price rounds engage
 
 
+def test_deepseek_constants_fit_the_smoke():
+    """The committed deepseek constants were made for the MLA phase's setup
+    (full width, DS_LAYERS layers): every step and request of the JSON;
+    in the npz the one MoE layer (the last) of the prefill and of each
+    decode step at the prefill's capacity, a mark per prefill token, the
+    skewed set at 160 experts with a raised price, and layer 0's hidden
+    state and cache rows at the sampled positions."""
+    want = json.loads(chip_smoke.MLA_CONSTANTS.read_text())
+    assert {k: want[k] for k in chip_smoke.mla_setup()} == \
+        chip_smoke.mla_setup()
+    assert len(want["steps"]) == chip_smoke.SERVE_NEW
+    for rec in want["steps"]:
+        assert np.asarray(rec["ids"]).shape == (chip_smoke.SERVE_B, 5)
+    cfg = chip_smoke.mla_config(get_config(chip_smoke.MLA_ARCH))
+    m, E, B = cfg.mla, cfg.moe.n_experts, chip_smoke.SERVE_B
+    T = B * chip_smoke.SERVE_S
+    z = np.load(chip_smoke.MLA_ROUTING)
+    assert int(z["capacity"]) == moe_capacity(cfg, T, decode=False)
+    assert z["moe_layers"].tolist() == [1] and int(z["n_layers"]) == 2
+    assert z["prefill_scores"].shape == (1, 1, T, E)
+    assert z["prefill_token_unstable"].shape == (1, T)
+    assert z["prefill_flips"].tolist() == [int(z["prefill_token_unstable"].sum())]
+    assert z["decode_dispatch"].shape == (chip_smoke.SERVE_NEW - 1, 1, 1, B,
+                                          E)
+    assert z["skewed_scores"].shape == (T, E)
+    assert z["skewed_auction_prices"].max() > 0
+    P = len(chip_smoke.sample_positions())
+    assert z["layer0_positions"].tolist() == \
+        chip_smoke.sample_positions().tolist()
+    assert z["layer0_hidden"].shape == (B, P, cfg.d_model)
+    assert z["layer0_c_kv"].shape == (B, P, m.kv_lora_rank)
+    assert z["layer0_k_rope"].shape == (B, P, m.qk_rope_dim)
+    assert chip_smoke.MLA_ROUTING.stat().st_size + \
+        chip_smoke.MLA_CONSTANTS.stat().st_size < 16 << 20
+
+
 def _moe_marks(n_steps=4, L=2, B=3):
     return {"prefill_unstable": np.zeros(L, bool),
             "prefill_flips": np.zeros(L, np.int32),
@@ -188,6 +265,77 @@ def test_moe_stops_follow_the_routing_marks():
     marks["prefill_unstable"][1], marks["prefill_flips"][1] = True, 7
     stops, why = chip_smoke.moe_stops(marks)
     assert stops == [0, 0, 0] and "layer 1 (7 tokens move)" in why
+
+
+def _token_marks(mark=None, B=3, S=5, E=4, cap=10, layer=1, demand=8,
+                 price=0.0):
+    """One MoE layer's marks as the deepseek constants hold them: the
+    model's layer ``layer`` of 2, capacity ``cap``, the auction's largest
+    demand and price, and a mark at token ``mark`` (``b * S + s``)."""
+    marks = _moe_marks(L=1, B=B)
+    marks["prefill_dispatch"] = np.zeros((1, 1, B * S, E), bool)
+    marks["prefill_token_unstable"] = np.zeros((1, B * S), bool)
+    if mark is not None:
+        marks["prefill_token_unstable"][0, mark] = True
+        marks["prefill_unstable"][0], marks["prefill_flips"][0] = True, 1
+    marks.update(moe_layers=np.array([layer]), n_layers=np.int32(2),
+                 capacity=np.int32(cap),
+                 prefill_auction_demand=np.array([[[demand, 0, 0, 0]]]),
+                 prefill_auction_prices=np.array([[[price, 0, 0, 0]]],
+                                                 np.float32))
+    return marks
+
+
+@pytest.mark.parametrize("case,want", [
+    ("no mark", [4, 4, 4]),
+    ("a non-last position of the last layer, slack capacity", [4, 4, 4]),
+    ("request 1's last position", [4, 0, 4]),
+    ("binding capacity", [0, 0, 0]),
+    ("a raised price", [0, 0, 0]),
+    ("an earlier layer", [0, 0, 0]),
+])
+def test_moe_stops_follow_the_token_marks(case, want):
+    """The exact rule for per-token marks: a mark in the model's last
+    layer, where the auction's largest demand is below capacity - 1 and no
+    price rose, moves only its own token's last hidden row, so it stops
+    only the request whose last prompt position it is (the prefill reads
+    only that row's logits); a binding capacity, a raised price or an
+    earlier layer stops every request at step 0."""
+    marks = _token_marks(**{
+        "no mark": {},
+        "a non-last position of the last layer, slack capacity":
+            dict(mark=7),
+        "request 1's last position": dict(mark=9),
+        "binding capacity": dict(mark=7, demand=9),
+        "a raised price": dict(mark=7, price=0.25),
+        "an earlier layer": dict(mark=7, layer=0),
+    }[case])
+    stops, why = chip_smoke.moe_stops(marks)
+    assert stops == want, why
+    if case == "request 1's last position":
+        assert "requests [1] not compared" in why
+        # the prefill dispatch is compared but for the marked token's row
+        seen = [("auction_route", 3, torch.zeros(1, 15, 4, dtype=torch.bool))]
+        seen += [("topk_route", 3, torch.zeros(1, 3, 4, dtype=torch.bool))
+                 for _ in range(3)]
+        assert chip_smoke.check_moe_dispatch(seen, marks, stops, 1) == 14 + 6
+        seen[0][2][0, 9, 0] = True
+        assert chip_smoke.check_moe_dispatch(seen, marks, stops, 1) == 14 + 6
+        seen[0][2][0, 8, 0] = True
+        with pytest.raises(AssertionError, match="prefill layer 0"):
+            chip_smoke.check_moe_dispatch(seen, marks, stops, 1)
+
+
+def test_moe_stops_of_phi_constants_unchanged():
+    """phi3.5-moe's committed constants hold no per-token marks: their
+    stops are what the rule gave before it had them (no decision marked,
+    every step compared)."""
+    z = dict(np.load(chip_smoke.MOE_ROUTING))
+    assert "prefill_token_unstable" not in z
+    assert chip_smoke.moe_stops(z) == ([chip_smoke.SERVE_NEW]
+                                       * chip_smoke.SERVE_B,
+                                       "every step's routing stable")
+    assert chip_smoke.local_marks(z, 0) is None
 
 
 def test_check_moe_dispatch_fails_on_a_flip_where_jax_was_stable():
@@ -245,6 +393,19 @@ def test_serve_cli_on_cpu_moe():
     layers: flow routing in the prefill, top-k in the decode steps."""
     proc = _cli("--arch", "phi3.5-moe-42b-a6.6b", "--smoke", "--n-layers",
                 "2", "--batch", "2", "--prompt-len", "8", "--max-new", "4",
+                "--device", "cpu")
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.splitlines()
+    assert lines[0].startswith("prefill: 2x8 in ")
+    assert lines[1].startswith("decode: 3 steps in ")
+    assert [ln.split(":")[0] for ln in lines[3:]] == ["  req0", "  req1"]
+
+
+def test_serve_cli_on_cpu_deepseek():
+    """deepseek-v2's smoke variant through the CLI, its depth cut to 2
+    layers: the dense prefix, then MLA with the MoE."""
+    proc = _cli("--arch", "deepseek-v2-236b", "--smoke", "--n-layers", "2",
+                "--batch", "2", "--prompt-len", "8", "--max-new", "4",
                 "--device", "cpu")
     assert proc.returncode == 0, proc.stderr
     lines = proc.stdout.splitlines()

@@ -1,6 +1,6 @@
 """Constants of the JAX package that ``chip_smoke.py`` holds the port to.
 
-    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_smoke_constants.py [rounds|serve|moe]
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_smoke_constants.py [rounds|serve|moe|deepseek]
 
 ``chip_smoke.py`` runs where JAX is not installed, so what it compares
 with the JAX package is made here, on the CPU, from the same inputs:
@@ -28,9 +28,19 @@ with the JAX package is made here, on the CPU, from the same inputs:
   MoE layer's gate logits and dispatch in the prefill and in each decode
   step (recorded from inside the jitted model), the auction's and top-k's
   routing of the prefill logits and of a seeded skewed score set, and
-  the routing-stability marks (``routing_marks``).
+  the routing-stability marks (``routing_marks``): per MoE layer of the
+  prefill, per prefill token (``prefill_token_unstable``) and per decode
+  step, layer and request.
+* ``deepseek`` (about 10 minutes on 8 cores, 35-50 GB resident at its
+  peak; run it with nothing else large on the machine): the MLA serve
+  phase's reference, made as ``moe``'s for deepseek-v2 at full width cut
+  to ``chip_smoke.DS_LAYERS`` layers (``chip_smoke.mla_config``), into
+  ``chip_smoke.MLA_CONSTANTS`` and ``chip_smoke.MLA_ROUTING``; the npz
+  also holds the hidden state after layer 0 and layer 0's ``c_kv`` and
+  ``k_rope`` cache rows at ``chip_smoke.sample_positions`` (recorded from
+  inside the jitted prefill).
 
-With no argument it makes all three.
+With no argument it makes all four.
 """
 import json
 import pathlib
@@ -172,32 +182,59 @@ def _routing_arrays(prefix: str, r) -> dict:
     return {f"{prefix}_{k}": np.asarray(x) for k, x in r._asdict().items()}
 
 
-def routing_marks(scores: np.ndarray, route, rng) -> np.ndarray:
+def routing_marks(scores: np.ndarray, route, rng,
+                  perturb: float = chip_smoke.MOE_PERTURB) -> np.ndarray:
     """Per token (all leading axes but the expert one): whether its
-    dispatch row changes when ``scores`` move by
-    ``chip_smoke.MOE_PERTURB`` x the set's largest |score| x N(0, 1), in
-    any of ``chip_smoke.MOE_DRAWS`` draws (``route``: scores -> dispatch,
-    numpy)."""
+    dispatch row changes when ``scores`` move by ``perturb`` x the set's
+    largest |score| x N(0, 1), in any of ``chip_smoke.MOE_DRAWS`` draws
+    (``route``: scores -> dispatch, numpy)."""
     want = route(scores)
     moved = np.zeros(scores.shape[:-1], bool)
-    scale = np.float32(chip_smoke.MOE_PERTURB * np.abs(scores).max())
+    scale = np.float32(perturb * np.abs(scores).max())
     for _ in range(chip_smoke.MOE_DRAWS):
         z = rng.standard_normal(scores.shape, dtype=np.float32)
         moved |= np.any(route(scores + scale * z) != want, axis=-1)
     return moved
 
 
-def moe() -> None:
-    from repro.configs.base import get_config
+def _record_layer0(rows: dict, positions: np.ndarray):
+    """Wrap the JAX ``models.model._apply_sublayer`` so that the first
+    prefill sublayer traced (layer 0, the dense prefix) hands its output
+    and its cache's two leaves at ``positions`` to the host. Returns a
+    function that puts the original back."""
+    from repro.models import model as jmodel
+    original = jmodel._apply_sublayer
+    idx = jnp.asarray(positions)
+
+    def spy(*a, **kw):
+        x, cache = original(*a, **kw)
+        if not kw["decode"] and "traced" not in rows:
+            rows["traced"] = True
+            jax.debug.callback(
+                lambda h, c, r: rows.update(hidden=np.asarray(h),
+                                            c_kv=np.asarray(c),
+                                            k_rope=np.asarray(r)),
+                x[:, idx], cache.k[:, idx], cache.v[:, idx], ordered=True)
+        return x, cache
+    jmodel._apply_sublayer = spy
+    return lambda: setattr(jmodel, "_apply_sublayer", original)
+
+
+def _routed(cfg, constants: pathlib.Path, routing: pathlib.Path,
+            setup: dict, layer0: bool = False) -> None:
+    """The reference of a routed serve phase (``moe``, ``deepseek``) for
+    ``cfg`` (the JAX package's config, cut to the phase's depth)."""
     from repro.core.routing import auction_route, topk_route
-    from repro.models.model import init_model
+    from repro.models.model import init_model, layer_plan
 
     from repro_torch.interop import numpy_params
     t0 = time.perf_counter()
-    cfg = chip_smoke.moe_config(get_config(chip_smoke.MOE_ARCH))
     e = cfg.moe
     B, S, new = chip_smoke.SERVE_B, chip_smoke.SERVE_S, chip_smoke.SERVE_NEW
-    T, L = B * S, cfg.n_layers
+    T = B * S
+    moe_layers = np.array([i for i, (_, ffn) in enumerate(layer_plan(cfg))
+                           if ffn == "moe"], np.int32)
+    L = len(moe_layers)
     cap = min(max(1, int(T * e.top_k / e.n_experts * e.capacity_factor)), T)
     params = numpy_params(cfg, chip_smoke.SEED)
 
@@ -219,18 +256,22 @@ def moe() -> None:
         return p
     jax.eval_shape(params_only)
     axes = held["axes"]
-    print(f"# {cfg.name}, {L} layers: weights in "
+    print(f"# {cfg.name}, {cfg.n_layers} layers: weights in "
           f"{time.perf_counter() - t0:.0f} s", flush=True)
 
     seen: list = []
-    restore = _record_routers(seen)
+    rows: dict = {}
+    restore = [_record_routers(seen)]
+    if layer0:
+        restore.append(_record_layer0(rows, chip_smoke.sample_positions(S)))
     try:
         prompts = chip_smoke.serve_prompts(cfg.vocab, B, S)
         tokens, steps = jax_generate(cfg, params, axes, prompts, new,
                                      S_max=S + new)
         jax.effects_barrier()
     finally:
-        restore()
+        for undo in restore:
+            undo()
     del params
     print(f"# generated ({time.perf_counter() - t0:.0f} s); request 0 "
           f"tokens {tokens[0].tolist()}", flush=True)
@@ -247,7 +288,8 @@ def moe() -> None:
     def topk(s, c):
         return np.asarray(topk_route(jnp.asarray(s), e.top_k, c).dispatch)
 
-    out = {"capacity": np.int32(cap),
+    out = {"capacity": np.int32(cap), "moe_layers": moe_layers,
+           "n_layers": np.int32(cfg.n_layers),
            "prefill_scores": np.stack([s for _, _, s, _ in pre]),
            "prefill_dispatch": np.stack([d for *_, d in pre]),
            "decode_scores": np.stack([s for _, _, s, _ in dec]).reshape(
@@ -264,33 +306,61 @@ def moe() -> None:
     # the routing inside the jitted model is the eager router's
     assert np.array_equal(out[f"prefill_{router.split('_')[0]}_dispatch"],
                           out["prefill_dispatch"])
+    perturb = setup["perturb"]
     flips = np.stack([routing_marks(s, auction if router == "auction_route"
-                                    else lambda x: topk(x, cap), rng)
+                                    else lambda x: topk(x, cap), rng, perturb)
                       for s in out["prefill_scores"]])     # (L, 1, T)
+    out["prefill_token_unstable"] = flips.reshape(L, T)
     out["prefill_flips"] = flips.reshape(L, -1).sum(-1).astype(np.int32)
     out["prefill_unstable"] = out["prefill_flips"] > 0
     out["decode_unstable"] = np.stack([
-        routing_marks(s, lambda x: topk(x, B), rng)
+        routing_marks(s, lambda x: topk(x, B), rng, perturb)
         for s in out["decode_scores"].reshape(-1, 1, B, e.n_experts)
     ]).reshape(new - 1, L, B)
-    out["skewed_unstable"] = routing_marks(skew, auction, rng)
-    np.savez_compressed(chip_smoke.MOE_ROUTING, **out)
-    setup = chip_smoke.moe_setup()
-    chip_smoke.MOE_CONSTANTS.write_text(json.dumps(dict(
+    out["skewed_unstable"] = routing_marks(skew, auction, rng, perturb)
+    if layer0:
+        out["layer0_positions"] = chip_smoke.sample_positions(S)
+        out.update({f"layer0_{k}": rows[k]
+                    for k in ("hidden", "c_kv", "k_rope")})
+    np.savez_compressed(routing, **out)
+    constants.write_text(json.dumps(dict(
         setup, tokens=tokens.tolist(),
         steps=[chip_smoke.top5_records(lg) for lg in steps])) + "\n")
-    print(f"# wrote {chip_smoke.MOE_CONSTANTS.relative_to(ROOT)} and "
-          f"{chip_smoke.MOE_ROUTING.relative_to(ROOT)} "
+    print(f"# wrote {constants.relative_to(ROOT)} and "
+          f"{routing.relative_to(ROOT)} "
           f"({time.perf_counter() - t0:.0f} s): capacity {cap}; prefill "
-          f"tokens whose dispatch moves per layer "
-          f"{out['prefill_flips'].tolist()}; decode (step, layer, request) "
-          f"marks {np.argwhere(out['decode_unstable']).tolist()}; skewed "
-          f"set {int(out['skewed_unstable'].sum())} tokens, auction prices "
-          f"up to {float(out['skewed_auction_prices'].max()):.4f}",
-          flush=True)
+          f"tokens whose dispatch moves per MoE layer "
+          f"{out['prefill_flips'].tolist()} (the first: "
+          f"{np.flatnonzero(out['prefill_token_unstable'].any(0))[:10].tolist()}"
+          f"); largest demand "
+          f"{int(out['prefill_auction_demand'].max())}, prices up to "
+          f"{float(out['prefill_auction_prices'].max()):.4f}; decode "
+          f"(step, layer, request) marks "
+          f"{np.argwhere(out['decode_unstable']).tolist()}; skewed set "
+          f"{int(out['skewed_unstable'].sum())} tokens, auction prices up "
+          f"to {float(out['skewed_auction_prices'].max()):.4f}", flush=True)
+
+
+def moe() -> None:
+    from repro.configs.base import get_config
+    _routed(chip_smoke.moe_config(get_config(chip_smoke.MOE_ARCH)),
+            chip_smoke.MOE_CONSTANTS, chip_smoke.MOE_ROUTING,
+            chip_smoke.moe_setup())
+
+
+def deepseek() -> None:
+    import resource
+    from repro.configs.base import get_config
+    _routed(chip_smoke.mla_config(get_config(chip_smoke.MLA_ARCH)),
+            chip_smoke.MLA_CONSTANTS, chip_smoke.MLA_ROUTING,
+            chip_smoke.mla_setup(), layer0=True)
+    print(f"# peak resident memory "
+          f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.1f}"
+          f" GiB", flush=True)
 
 
 if __name__ == "__main__":
-    which = sys.argv[1:] or ["rounds", "serve", "moe"]
+    which = sys.argv[1:] or ["rounds", "serve", "moe", "deepseek"]
     for name in which:
-        {"rounds": rounds, "serve": serve, "moe": moe}[name]()
+        {"rounds": rounds, "serve": serve, "moe": moe,
+         "deepseek": deepseek}[name]()
