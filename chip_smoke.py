@@ -161,7 +161,23 @@ Drives ``src/repro_torch`` only (no ``jax``, nothing of ``repro``):
    LOGIT_TOL x the largest |value| of JAX's
    (``tests/torch_smoke_deepseek.npz``); then generations as in phase 12
    against ``tests/torch_smoke_deepseek.json``, with ``moe_stops``'
-   exact rule for tokens whose last-layer routing JAX found unstable.
+   exact rule for tokens whose last-layer routing JAX found unstable;
+14. drives the SSM serving path (``phase_ssm``, ROADMAP M9b.3):
+   mamba2-370m at full width and depth (48 layers, d_model 1024, d_inner
+   2048, 32 heads of 64, d_state 128, d_conv 4, chunk 256, tied
+   embeddings; no attention) on ``numpy_params`` weights (seed 0),
+   float32. After one prefill the SSM ``state`` and ``conv`` rows of
+   layers SSM_LAYERS (0 and 47) for the first SSM_REQUESTS (2) requests
+   lie within LOGIT_TOL x JAX's largest |value| of each
+   (``tests/torch_smoke_mamba.npz``); then a warm-up and two timed
+   generations of the serve phase's prompts are held to JAX's top-5 per
+   step (``tests/torch_smoke_mamba.json``) by ``check_serve``, and no port
+   kernel (K1-K6) may launch in a prefill or a decode step. A profiled
+   prefill and decode step give device busy, idle share, the largest
+   device items and their split by kernel name, and the phase logs the
+   peak device memory.
+
+The phases' walls are logged on one ``[walls]`` line at the end.
 
 Prints one JSON line per kernel summary, the ``nvidia-smi`` name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero
@@ -241,6 +257,17 @@ DS_LAYERS = 2
 MLA_CONSTANTS = ROOT / "tests" / "torch_smoke_deepseek.json"
 MLA_ROUTING = ROOT / "tests" / "torch_smoke_deepseek.npz"
 MLA_SAMPLE = 64
+# the SSM serve path: mamba2-370m at full width and depth (368,338,432
+# parameters, 1.47 GB in float32), on the serve phase's prompts. The JAX
+# package's top-5 logits per step are in SSM_CONSTANTS; its SSM state and
+# conv rows after the prefill, of layers SSM_LAYERS for the first
+# SSM_REQUESTS requests, in SSM_STATES (`PYTHONPATH=src JAX_PLATFORMS=cpu
+# python tests/torch_smoke_constants.py mamba`)
+SSM_ARCH = "mamba2-370m"
+SSM_CONSTANTS = ROOT / "tests" / "torch_smoke_mamba.json"
+SSM_STATES = ROOT / "tests" / "torch_smoke_mamba.npz"
+SSM_LAYERS = (0, 47)
+SSM_REQUESTS = 2
 # deepseek's gate logits on the card differ from JAX's on the CPU by up to
 # 7.7e-6 of their largest |logit| (after layer 0 and K6; phi's first layer
 # has no such depth), so its marks move the scores by 1e-5 of it
@@ -2294,23 +2321,61 @@ def layer0_rows(model, prompts: torch.Tensor, S_max: int) -> dict:
     return rows
 
 
+def check_rows(got: np.ndarray, ref, what: str, tol: float) -> float:
+    """``got`` against the JAX package's ``ref``: the same shape, within
+    ``tol`` x JAX's largest |value|. Returns the error as a share of its
+    tolerance."""
+    ref = np.asarray(ref)
+    if got.shape != ref.shape:
+        raise AssertionError(f"{what}: shape {got.shape}, JAX's {ref.shape}")
+    lim = tol * np.abs(ref).max()
+    err = float(np.abs(got - ref).max())
+    if not err <= lim:
+        raise AssertionError(f"{what}: off JAX's by {err:.3g} > {lim:.3g}")
+    return err / lim
+
+
 def check_layer0(got: dict, want, tol: float = LOGIT_TOL) -> dict:
     """``layer0_rows`` against the JAX package's (``want``: the npz's
     ``layer0_*``): each within ``tol`` x JAX's largest |value|. Returns
     each error as a share of its tolerance."""
-    out = {}
-    for key in ("hidden", "c_kv", "k_rope"):
-        ref = np.asarray(want[f"layer0_{key}"])
-        if got[key].shape != ref.shape:
-            raise AssertionError(f"layer 0 {key}: shape {got[key].shape}, "
-                                 f"JAX's {ref.shape}")
-        lim = tol * np.abs(ref).max()
-        err = float(np.abs(got[key] - ref).max())
-        if not err <= lim:
-            raise AssertionError(f"layer 0 {key}: off JAX's by {err:.3g} > "
-                                 f"{lim:.3g}")
-        out[key] = err / lim
-    return out
+    return {key: check_rows(got[key], want[f"layer0_{key}"],
+                            f"layer 0 {key}", tol)
+            for key in ("hidden", "c_kv", "k_rope")}
+
+
+def ssm_setup() -> dict:
+    """What the SSM constants were made for."""
+    return dict(arch=SSM_ARCH, B=SERVE_B, S=SERVE_S, max_new=SERVE_NEW,
+                seed=SEED, layers=list(SSM_LAYERS), requests=SSM_REQUESTS)
+
+
+def ssm_rows(model, prompts: torch.Tensor, S_max: int) -> dict:
+    """One prefill through ``make_prefill_step``: the SSM ``state`` and
+    ``conv`` rows of layers SSM_LAYERS for the first SSM_REQUESTS
+    requests, as float32 numpy arrays ``(layers, requests, ...)``."""
+    from repro_torch.models.model import init_caches
+    from repro_torch.serve.engine import make_prefill_step
+    B = prompts.shape[0]
+    caches = init_caches(model.cfg, B, S_max, dtype=torch.float32,
+                         device=prompts.device)
+    _, state = make_prefill_step(model)(prompts, caches)
+    return {k: np.stack([getattr(state.caches[i], k)[:SSM_REQUESTS].float()
+                         .cpu().numpy() for i in SSM_LAYERS])
+            for k in ("state", "conv")}
+
+
+def check_ssm_rows(got: dict, want, tol: float = LOGIT_TOL) -> dict:
+    """``ssm_rows`` against the JAX package's (``want``: the npz): the
+    ``state`` and ``conv`` rows of each layer within ``tol`` x JAX's
+    largest |value| of that leaf in that layer. Returns each error as a
+    share of its tolerance."""
+    if list(np.asarray(want["layers"])) != list(SSM_LAYERS):
+        raise AssertionError(f"SSM rows of layers {want['layers']}, not "
+                             f"{SSM_LAYERS}")
+    return {f"layer {layer} {k}": check_rows(got[k][i], want[k][i],
+                                             f"layer {layer} SSM {k}", tol)
+            for k in ("state", "conv") for i, layer in enumerate(SSM_LAYERS)}
 
 
 def moe_skewed_scores(T: int, E: int, seed: int = SEED + 3) -> np.ndarray:
@@ -2869,6 +2934,92 @@ def phase_mla(dev, counts: dict, card: str) -> dict:
     return dict(out, routers=routers, n_params=n_params, layer0=layer0)
 
 
+def phase_ssm(dev, counts: dict, card: str) -> dict:
+    """mamba2-370m at full width and depth on ``numpy_params`` weights:
+    one prefill's SSM rows against JAX's (``check_ssm_rows``: the conv,
+    the SSD chunk scan over 4 chunks of 256, the state at the first and
+    the last layer); a warm-up and two timed generations of SERVE_B x
+    SERVE_S prompts and SERVE_NEW tokens, each held to the JAX package's
+    constants, no port kernel launched in a prefill or a decode step;
+    then one profiled prefill and one profiled decode step."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.interop import model_from_params, numpy_params
+    from repro_torch.models.model import init_caches
+    from repro_torch.serve.engine import make_prefill_step, make_serve_step
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on; the SSM check assumes "
+                             "full float32")
+    want, rows_want = load_constants(SSM_CONSTANTS, SSM_STATES, ssm_setup())
+    cfg = get_config(SSM_ARCH)
+    t0 = time.perf_counter()
+    params = numpy_params(cfg, SEED)
+    t_numpy = time.perf_counter() - t0
+    model = model_from_params(cfg, params, device=dev)
+    del params
+    n_params = sum(p.numel() for p in model.parameters())
+    s = cfg.ssm
+    log(f"[ssm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"d_inner {s.d_inner(cfg.d_model)}, {s.n_heads(cfg.d_model)} heads "
+        f"of {s.head_dim}, d_state {s.d_state}, chunk {s.chunk}: {n_params} "
+        f"parameters on the card ({torch.cuda.memory_allocated() / 2**30:.2f}"
+        f" GiB allocated) in {time.perf_counter() - t0:.1f} s "
+        f"({t_numpy:.1f} s of it numpy)")
+    prompts = torch.tensor(serve_prompts(cfg.vocab, SERVE_B, SERVE_S),
+                           device=dev)
+    S_max = SERVE_S + SERVE_NEW
+    rows = check_ssm_rows(ssm_rows(model, prompts, S_max), rows_want)
+    log(f"[ssm] after one prefill, requests 0-{SSM_REQUESTS - 1}: SSM state "
+        f"and conv rows of layers {SSM_LAYERS} within LOGIT_TOL of JAX's "
+        f"(error / tolerance {rows})")
+    walls = []
+    for run in ("warm-up", "run 1", "run 2"):
+        steps, t_pre, t_steps, c_pre, c_steps, state = port_serve(
+            model, prompts, SERVE_NEW, S_max)
+        got = check_serve(steps, want["steps"])
+        require_not_launched(c_pre, list(c_pre), "ssm prefill")
+        for c in c_steps:
+            require_not_launched(c, list(c), "ssm decode step")
+        tokens = np.stack([t for t, _ in steps], 1)
+        log(f"[ssm] {run}: prefill {t_pre * 1e3:.2f} ms "
+            f"({SERVE_B * SERVE_S / t_pre:.0f} tok/s), decode "
+            f"{np.mean(t_steps) * 1e3:.3f} ms per token step "
+            f"({SERVE_B / np.mean(t_steps):.0f} tok/s); JAX check {got}; "
+            f"request 0 tokens {tokens[0].tolist()}")
+        if run != "warm-up":
+            walls.append((t_pre, float(np.mean(t_steps))))
+            counts.setdefault("ssm_prefill", c_pre)
+            counts.setdefault("ssm_decode", {
+                n: sum(c[n] for c in c_steps) for n in c_pre})
+    t_pre = sum(w[0] for w in walls) / len(walls)
+    t_step = sum(w[1] for w in walls) / len(walls)
+    caches = init_caches(cfg, SERVE_B, S_max, dtype=torch.float32,
+                         device=dev)
+    pre = profile("ssm prefill 8 x 1024", t_pre, make_prefill_step(model),
+                  prompts, caches, top=16, split=True)
+    dec = profile("ssm decode step", t_step, make_serve_step(model), state,
+                  top=16, split=True)
+    for what, prof in (("prefill", pre), ("decode step", dec)):
+        if prof["port_kernels"]:
+            raise AssertionError(f"ssm {what}: port kernels "
+                                 f"{prof['port_kernels']} in the profile")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[ssm] peak device memory {peak / 2**30:.2f} GiB; on {card}")
+    return dict(walls=walls, prefill=pre, decode=dec, rows=rows,
+                n_params=n_params, peak_bytes=peak)
+
+
+def timed(walls: dict, name: str, fn, *a, **kw):
+    """``fn(*a, **kw)``, its wall in seconds kept as ``walls[name]`` and
+    logged."""
+    t0 = time.perf_counter()
+    out = fn(*a, **kw)
+    walls[name] = time.perf_counter() - t0
+    log(f"[{name}] done in {walls[name]:.1f} s")
+    return out
+
+
 def nvidia_smi() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2890,47 +3041,46 @@ def main() -> int:
     log(f"[build] {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     for name, report in _build.build_all().items():
         log(f"[build] {name}.cu:\n{report.strip()}")
-    log(f"[build] done in {time.perf_counter() - t0:.1f} s")
+    walls = {"build": time.perf_counter() - t0}
+    log(f"[build] done in {walls['build']:.1f} s")
 
-    kernels = phase_kernels(dev, card)
+    kernels = timed(walls, "kernels", phase_kernels, dev, card)
 
     rng = np.random.default_rng(SEED)
     problems = [random_grid_problem(rng, H, W) for _ in range(B)]
     oracle = [maxflow_grid_ref(*p) for p in problems]
     log(f"[main] scipy oracle flows {oracle}")
     counts = {}
-    prob, in_solve = phase_main(dev, problems, oracle, counts)
-    in_solve.update(phase_balanced(dev, prob, oracle, counts))
-    kernels["bidding"]["in_solve"] = phase_assignment(dev, counts)
-    kernels["frontier"]["in_solve"] = phase_matching(dev, counts)[
-        "k5_in_solve"]
-    t_batch = time.perf_counter()
-    batch, batch_oracles = phase_batch(dev, counts, card)
-    log(f"[batch] done in {time.perf_counter() - t_batch:.1f} s: {batch}")
-    t_warm = time.perf_counter()
-    warm = phase_warm(dev, counts, problems, card)
-    log(f"[warm] done in {time.perf_counter() - t_warm:.1f} s")
-    t_engine = time.perf_counter()
-    phase_engine(dev, counts, problems, oracle, warm, batch_oracles, card)
-    log(f"[engine] done in {time.perf_counter() - t_engine:.1f} s")
-    serve = phase_serve(dev, counts)
+    prob, in_solve = timed(walls, "main", phase_main, dev, problems, oracle,
+                           counts)
+    in_solve.update(timed(walls, "balanced", phase_balanced, dev, prob,
+                          oracle, counts))
+    kernels["bidding"]["in_solve"] = timed(walls, "assignment",
+                                           phase_assignment, dev, counts)
+    kernels["frontier"]["in_solve"] = timed(
+        walls, "matching", phase_matching, dev, counts)["k5_in_solve"]
+    batch, batch_oracles = timed(walls, "batch", phase_batch, dev, counts,
+                                 card)
+    log(f"[batch] {batch}")
+    warm = timed(walls, "warm", phase_warm, dev, counts, problems, card)
+    timed(walls, "engine", phase_engine, dev, counts, problems, oracle, warm,
+          batch_oracles, card)
+    serve = timed(walls, "serve", phase_serve, dev, counts)
     k6 = serve["prefill"]["port_kernels"]
     kernels["flash_attention_fwd"]["prefill_ms_per_launch"] = (
         sum(ms for ms, _ in k6.values()) / sum(n for _, n in k6.values()))
     del serve
-    t_moe = time.perf_counter()
-    moe = phase_moe(dev, counts, card)
-    log(f"[moe] done in {time.perf_counter() - t_moe:.1f} s")
+    moe = timed(walls, "moe", phase_moe, dev, counts, card)
     ms, n = moe["prefill"]["port_kernels"]["flash_fwd_mma"]
     kernels["flash_attention_fwd"]["moe_shape"].update(
         prefill_ms_per_launch=ms / n, prefill_launches=n)
     del moe
-    t_mla = time.perf_counter()
-    mla = phase_mla(dev, counts, card)
-    log(f"[mla] done in {time.perf_counter() - t_mla:.1f} s")
+    mla = timed(walls, "mla", phase_mla, dev, counts, card)
     ms, n = mla["prefill"]["port_kernels"]["flash_fwd_mma"]
     kernels["flash_attention_fwd"]["mla_shape"].update(
         prefill_ms_per_launch=ms / n, prefill_launches=n)
+    del mla
+    timed(walls, "ssm", phase_ssm, dev, counts, card)
     # K1-K3 inside each profiled grid solve, under the wrapper's name
     for name, symbol in (("grid_push_decide", "grid_push_decide_kernel"),
                          ("grid_push_decide_sched",
@@ -2954,8 +3104,10 @@ def main() -> int:
                                         for k, c in counts.items() if c[name]},
                     equal=True, card=card), **kernels[name]}
             for name, (source, replaces) in KERNEL_SOURCES.items()]
-    log(f"[done] launches per phase {counts}; "
-        f"{time.perf_counter() - t0:.1f} s in all")
+    walls["all"] = time.perf_counter() - t0
+    log(f"[walls] seconds per phase: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
+    log(f"[done] launches per phase {counts}; {walls['all']:.1f} s in all")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

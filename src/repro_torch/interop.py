@@ -26,9 +26,11 @@ Model weights cross the same way:
   port's ``Model``, unstacking ``body`` into per-layer blocks and
   transposing each ``x @ W`` matrix into its ``nn.Linear`` (an MoE's
   ``gate`` and ``shared`` MLP, MLA's ``wq_a``, ``wq_b``, ``wkv_a`` and
-  ``wo`` too); the 3-D tensors keep the JAX layout and are copied as they
-  are: the MoE's experts ``w1``, ``w2``, ``w3`` and MLA's ``wk_b``,
-  ``wv_b``; ``model_from_params`` builds the model and loads it.
+  ``wo``, mamba's ``in_proj`` and ``out_proj`` too); the 3-D tensors keep
+  the JAX layout and are copied as they are: the MoE's experts ``w1``,
+  ``w2``, ``w3`` and MLA's ``wk_b``, ``wv_b``; so are mamba's ``conv_w``
+  ``(d_conv, di + 2 N)`` and its vectors; ``model_from_params`` builds the
+  model and loads it.
 
 Imports neither ``jax`` nor ``repro``.
 """
@@ -141,6 +143,22 @@ def _mla_tree(cfg, normal, ones) -> dict:
                          depth_scaled_std(H * m.v_dim, cfg.n_layers))}
 
 
+def _mamba_tree(cfg, normal, ones, zeros) -> dict:
+    """``init_mamba``'s leaves, in its order, with its stds (``scale``
+    replaces the fan-in std: ``conv_w`` ``d_conv ** -0.5``, ``out_proj``
+    depth-scaled) and its exact ones and zeros."""
+    s, D = cfg.ssm, cfg.d_model
+    di, N, H = s.d_inner(D), s.d_state, s.n_heads(D)
+    return {"in_proj": normal((D, 2 * di + 2 * N + H), dense_std(D)),
+            "conv_w": normal((s.d_conv, di + 2 * N), s.d_conv ** -0.5),
+            "conv_b": zeros((di + 2 * N,)),
+            "A_log": ones((H,)),
+            "dt_bias": zeros((H,)),
+            "D": ones((H,)),
+            "norm_g": ones((di,)),
+            "out_proj": normal((di, D), depth_scaled_std(di, cfg.n_layers))}
+
+
 def _sublayer_tree(cfg, spec, normal, ones, zeros) -> dict:
     """One sublayer of the JAX params tree (``_init_sublayer``'s keys)."""
     D, H, KV, dh, F = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.dh,
@@ -152,7 +170,9 @@ def _sublayer_tree(cfg, spec, normal, ones, zeros) -> dict:
             p["b"] = zeros((D,))
         return p
 
-    if cfg.attn_type == "mla":
+    if spec[0] == "mamba":
+        mixer = _mamba_tree(cfg, normal, ones, zeros)
+    elif cfg.attn_type == "mla":
         mixer = _mla_tree(cfg, normal, ones)
     else:
         mixer = {"wq": normal((D, H * dh), dense_std(D)),
@@ -226,13 +246,19 @@ def _linears(prefix: str, tree: dict) -> dict:
     return {f"{prefix}.{k}.weight": _matrix(x) for k, x in tree.items()}
 
 
+# mixer leaves copied in the JAX layout: the gains, and mamba's conv and
+# vectors (every other mixer matrix is an nn.Linear's, transposed)
+_MIXER_AS_IS = ("q_g", "k_g", "q_norm", "kv_norm", "conv_w", "conv_b",
+                "A_log", "dt_bias", "D", "norm_g")
+
+
 def _sublayer_state(prefix: str, tree: dict) -> dict:
     sd = {}
     for norm in ("norm1", "norm2"):
         for k, x in tree.get(norm, {}).items():
             sd[f"{prefix}.{norm}.{k}"] = _vector(x)
     for k, x in tree["mixer"].items():
-        if k in ("q_g", "k_g", "q_norm", "kv_norm"):
+        if k in _MIXER_AS_IS:
             sd[f"{prefix}.mixer.{k}"] = _vector(x)
         elif k in ("wk_b", "wv_b"):     # MLA's (kv_lora, H, ·), the JAX layout
             sd[f"{prefix}.mixer.{k}"] = _as_is(x)

@@ -8,6 +8,8 @@
       --arch phi3.5-moe-42b-a6.6b --n-layers 2 --batch 8 --prompt-len 1024
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch deepseek-v2-236b --n-layers 2 --batch 8 --prompt-len 1024
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch mamba2-370m --batch 8 --prompt-len 1024 --max-new 16
 
 Counterpart of ``repro/launch/serve.py``: random weights and prompts from
 ``--seed`` (torch generators, so not the JAX CLI's numbers), the same
@@ -17,7 +19,11 @@ counterpart, and one card holds a large model only with its depth cut:
 ``--n-layers`` keeps the config's widths and takes that many layers
 (phi3.5-moe's 32 float32 layers need 168 GB; deepseek-v2's 60 about
 944 GB, and its first 2 layers, the dense prefix and one MLA + MoE
-layer, 21.4 GB). The first prefill includes building the kernels.
+layer, 21.4 GB). mamba2-370m (1.47 GB in float32) runs at full depth; a
+prompt longer than its SSD chunk (256) must be a multiple of it.
+jamba-v0.1's smallest legal depth, 8 layers, is 53.1 GB in float32, so
+on the card it runs at ``--smoke`` width for now. The first prefill
+includes building the kernels.
 """
 from __future__ import annotations
 

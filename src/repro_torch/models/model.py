@@ -1,4 +1,4 @@
-"""LM assembly: layer plan -> blocks -> logits, for the attention families.
+"""LM assembly: layer plan -> blocks -> logits, for every causal family.
 
 Counterpart of ``repro/models/model.py``. The JAX package stacks each
 period of the layer plan and scans over the periods; the port holds one
@@ -11,16 +11,20 @@ JAX package's ``prefix[i]`` for ``i < n_dense_prefix`` and otherwise
 port has none.
 
 Runs the dense and token-input families (smollm-135m, chameleon-34b,
-command-r-plus-104b, minitron-8b, nemotron-4-340b) and the MoE family
-(phi3.5-moe, deepseek-v2): where the layer plan says ``"moe"`` the
-block's FFN is a ``models.mlp.MoE``, routed by the auction
-(``router="flow"``) or top-k in prefill and by top-k in decode, as the
-reference; a dense prefix (deepseek's first layer) is a plain ``"mlp"``
-in the plan. ``cfg.attn_type == "mla"`` makes every mixer an
-``models.attention.MLA``, whose cache holds ``c_kv`` and ``k_rope``.
-Mamba, the hybrid and encoder stacks, input frontends and the int8 cache
-wait for ROADMAP M9: ``check_supported`` raises ``NotImplementedError``
-for them.
+command-r-plus-104b, minitron-8b, nemotron-4-340b), the MoE family
+(phi3.5-moe, deepseek-v2), the SSM family (mamba2-370m) and the hybrid
+(jamba-v0.1). Where the layer plan says ``"moe"`` the block's FFN is a
+``models.mlp.MoE``, routed by the auction (``router="flow"``) or top-k in
+prefill and by top-k in decode, as the reference; a dense prefix
+(deepseek's first layer) is a plain ``"mlp"`` in the plan. Where the plan
+says ``"mamba"`` the mixer is a ``models.mamba.Mamba`` (SSD prefill,
+recurrent decode, an ``SSMCache``); otherwise it is attention:
+``models.attention.MLA`` where ``cfg.attn_type == "mla"`` (its cache holds
+``c_kv`` and ``k_rope``), else ``GQA``, with RoPE only where
+``cfg.rope_theta`` is set (jamba has none). The hybrid's plan puts
+attention at every ``attn_period``-th layer and mamba elsewhere. The
+encoder stack, input frontends and the int8 cache wait for ROADMAP M9:
+``check_supported`` raises ``NotImplementedError`` for them.
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import (GQA, MLA, KVCache, init_gqa,
                                          init_mla)
 from repro_torch.models.layers import Norm, dense_std, linear, normal_
+from repro_torch.models.mamba import Mamba, SSMCache, init_mamba
 from repro_torch.models.mlp import MLP, MoE, init_mlp, init_moe
 
 
@@ -75,9 +80,6 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP item for a config
     the port cannot run yet."""
     missing = []
-    if cfg.family in ("ssm", "hybrid") or any(
-            m == "mamba" for m, _ in layer_plan(cfg)):
-        missing.append("mamba (SSD) layers")
     if cfg.family == "encoder" or not cfg.causal:
         missing.append("the encoder stack")
     if cfg.frontend_dim:
@@ -93,18 +95,24 @@ def check_supported(cfg: ModelConfig) -> None:
 # Modules and init
 # ---------------------------------------------------------------------------
 
+def _mixer_class(cfg: ModelConfig, mixer: str) -> type:
+    if mixer == "mamba":
+        return Mamba
+    return MLA if cfg.attn_type == "mla" else GQA
+
+
 class Block(nn.Module):
-    """One layer: ``norm1`` -> ``mixer`` (``MLA`` where ``cfg.attn_type``
-    is ``"mla"``, else ``GQA``) -> residual, then (where the plan has an
-    FFN) ``norm2`` -> ``ffn`` (an ``MLP``, or a ``MoE`` where the plan says
-    ``"moe"``) -> residual."""
+    """One layer: ``norm1`` -> ``mixer`` (``Mamba`` where the plan says
+    ``"mamba"``; else ``MLA`` where ``cfg.attn_type`` is ``"mla"``, else
+    ``GQA``) -> residual, then (where the plan has an FFN) ``norm2`` ->
+    ``ffn`` (an ``MLP``, or a ``MoE`` where the plan says ``"moe"``) ->
+    residual."""
 
     def __init__(self, cfg: ModelConfig, spec, device=None, dtype=None):
         super().__init__()
-        _, ffn = spec
+        mixer, ffn = spec
         self.norm1 = Norm(cfg.d_model, cfg.norm, device, dtype)
-        self.mixer = (MLA if cfg.attn_type == "mla" else GQA)(cfg, device,
-                                                              dtype)
+        self.mixer = _mixer_class(cfg, mixer)(cfg, device, dtype)
         if ffn:
             self.norm2 = Norm(cfg.d_model, cfg.norm, device, dtype)
             self.ffn = (MoE if ffn == "moe" else MLP)(cfg, device=device,
@@ -150,15 +158,17 @@ def init_model(cfg: ModelConfig, generator: torch.Generator, *, device=None,
     """A model with random weights drawn from ``generator``: the JAX
     ``init_model``'s standard deviations (``fan_in ** -0.5``; the embedding
     ``d_model ** -0.5``; ``wo`` and ``w2`` depth-scaled; norm gains 1 and
-    biases 0; MLA's and the MoE's as ``init_mla`` and ``init_moe`` say).
+    biases 0; MLA's, mamba's and the MoE's as ``init_mla``, ``init_mamba``
+    and ``init_moe`` say).
     Runs on ``device`` (default cuda); the generator may live on the
     CPU."""
     model = Model(cfg, device=device, dtype=dtype)
     # d^-0.5 embedding scale keeps tied-head logits ~N(0,1) at init
     normal_(model.embed, cfg.d_model ** -0.5, generator)
     for block in model.layers:
-        (init_mla if isinstance(block.mixer, MLA) else init_gqa)(
-            block.mixer, generator)
+        init = {Mamba: init_mamba, MLA: init_mla, GQA: init_gqa}[
+            type(block.mixer)]
+        init(block.mixer, generator)
         if isinstance(getattr(block, "ffn", None), MoE):
             init_moe(block.ffn, generator)
         elif hasattr(block, "ffn"):
@@ -180,7 +190,7 @@ class ModelOutput(NamedTuple):
 def apply_model(model: Model, batch, *, caches=None, decode: bool = False,
                 pos_offset=0, logits_mode: str = "all") -> ModelOutput:
     """batch: ``{"tokens": (B, S) int}``. ``caches``: ``init_caches``'s list
-    (one ``KVCache`` per layer) or None. ``pos_offset`` may be an int or a
+    (one ``KVCache`` or ``SSMCache`` per layer) or None. ``pos_offset`` may be an int or a
     0-d tensor on the model's device (the decode position). Returns the
     logits ``(B, S, vocab)`` (``logits_mode="last"``: ``(B, 1, vocab)``)
     and the new caches (None without caches)."""
@@ -209,23 +219,35 @@ def apply_model(model: Model, batch, *, caches=None, decode: bool = False,
 # Caches
 # ---------------------------------------------------------------------------
 
-def _layer_cache(cfg, spec, B, S_max, dtype, device) -> KVCache:
-    """GQA: k and v ``(B, S_max, KV, dh)``; MLA: ``c_kv`` ``(B, S_max,
-    kv_lora)`` and ``k_rope`` ``(B, S_max, rope)``."""
+def _layer_cache(cfg, spec, B, S_max, dtype, device):
+    """GQA: ``KVCache`` k and v ``(B, S_max, KV, dh)``; MLA: ``c_kv``
+    ``(B, S_max, kv_lora)`` and ``k_rope`` ``(B, S_max, rope)``; mamba:
+    ``SSMCache`` with ``state`` ``(B, H, P, N)`` in float32 whatever
+    ``dtype``, ``conv`` ``(B, d_conv - 1, di + 2 N)``."""
+    length = torch.tensor(0, dtype=torch.int32, device=device)
+    if spec[0] == "mamba":
+        s = cfg.ssm
+        di = s.d_inner(cfg.d_model)
+        return SSMCache(
+            torch.zeros((B, s.n_heads(cfg.d_model), s.head_dim, s.d_state),
+                        dtype=torch.float32, device=device),
+            torch.zeros((B, s.d_conv - 1, di + 2 * s.d_state), dtype=dtype,
+                        device=device),
+            length)
     if cfg.attn_type == "mla":
         shapes = ((B, S_max, cfg.mla.kv_lora_rank),
                   (B, S_max, cfg.mla.qk_rope_dim))
     else:
         shapes = ((B, S_max, cfg.n_kv_heads, cfg.dh),) * 2
     return KVCache(*(torch.zeros(s, dtype=dtype, device=device)
-                     for s in shapes),
-                   torch.tensor(0, dtype=torch.int32, device=device))
+                     for s in shapes), length)
 
 
 def init_caches(cfg: ModelConfig, B: int, S_max: int, dtype=torch.bfloat16,
-                device=None) -> list[KVCache]:
-    """One empty ``KVCache`` per layer (the JAX package stacks the body's
-    along a leading period axis)."""
+                device=None) -> list:
+    """One empty cache per layer, ``KVCache`` or ``SSMCache`` by the
+    layer's mixer (the JAX package stacks the body's along a leading
+    period axis)."""
     check_supported(cfg)
     dev = resolve_device(device)
     return [_layer_cache(cfg, spec, B, S_max, dtype, dev)

@@ -43,6 +43,7 @@ def test_import_pulls_in_neither_jax_nor_repro():
         "import repro_torch.core.solver_loop\n"
         "import repro_torch.core.warm, repro_torch.checkpoint.store\n"
         "import repro_torch.core.routing, repro_torch.models.mlp\n"
+        "import repro_torch.models.mamba\n"
         "import repro_torch.launch.mesh\n"
         "import repro_torch.obs, repro_torch.serve.metrics\n"
         "import repro_torch.serve.scheduler\n"

@@ -43,7 +43,7 @@ from repro_torch.kernels.grid_push.ops import tile_schedule, tile_shape
 from repro_torch.kernels.grid_push.ref import (grid_push_decide_ref,
                                                grid_push_decide_sched_ref)
 from repro_torch.models.attention import MLA, KVCache, init_mla
-from repro_torch.models.model import apply_model
+from repro_torch.models.model import apply_model, layer_plan
 from repro_torch.serve.engine import greedy_generate
 
 pytestmark = pytest.mark.torch
@@ -900,6 +900,38 @@ def test_serve_on_card_close_to_cpu(cuda_device):
     (a, ta), (b, tb) = outs["cuda"], outs["cpu"]
     assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
     assert torch.equal(ta, tb)
+
+
+def test_jamba_smoke_on_card_close_to_cpu(cuda_device):
+    """jamba-v0.1's smoke variant (16 layers: attention without RoPE at
+    layers 0 and 8, SSD mamba elsewhere, the MoE at every other layer): a
+    greedy generation of 2 prompts of 128 tokens (2 SSD chunks) and 6 new
+    tokens on the card, held to the same generation on the CPU by
+    ``chip_smoke.check_serve``'s rule at 1e-4 x the step's largest |logit|
+    (float32 on both sides, summed in other orders): the card's logits at
+    the CPU's top-5 ids within it, and the CPU's token wherever its top-2
+    gap is wider. K6 launched once per attention layer in the prefill and
+    never in a decode step; no other port kernel."""
+    import chip_smoke
+    cfg = smoke_variant(get_config("jamba-v0.1-52b"))
+    params = numpy_params(cfg, seed=0)
+    prompts = chip_smoke.serve_prompts(cfg.vocab, 2, 128)
+    n_attn = sum(m == "attn" for m, _ in layer_plan(cfg))
+    assert n_attn == 2
+    runs = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        model = model_from_params(cfg, params, device=dev)
+        steps, _, _, c_pre, c_steps, _ = chip_smoke.port_serve(
+            model, torch.tensor(prompts, device=dev), 6, 134)
+        on_card = dev.type == "cuda"
+        assert c_pre["flash_attention_fwd"] == (n_attn if on_card else 0)
+        assert all(n == 0 for k, n in c_pre.items()
+                   if k != "flash_attention_fwd")
+        assert all(n == 0 for c in c_steps for n in c.values())
+        runs[dev.type] = steps
+    want = [chip_smoke.top5_records(lg) for _, lg in runs["cpu"]]
+    report = chip_smoke.check_serve(runs["cuda"], want, tol=1e-4)
+    assert min(report["steps_compared"]) >= 1, report
 
 
 # MoE routers: (shape, per-expert offset std, capacity, ties) -- the

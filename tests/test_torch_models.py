@@ -10,7 +10,9 @@ size moves logits by about 1e-6 of their largest magnitude. Tolerance:
 building blocks. The MoE layer is held to ``MOE_TOL`` x its largest
 |output|, and its routers' dispatch to the JAX package's exactly; the MLA
 layer (outputs and its ``c_kv`` / ``k_rope`` cache) to ``MLA_TOL`` x each
-leaf's largest |value|.
+leaf's largest |value|. Caches are compared field by field over the
+layers of one mixer kind (``k`` / ``v`` of attention, ``state`` / ``conv``
+of mamba), at ``LOGIT_TOL`` x the field's largest |value|.
 """
 import dataclasses
 
@@ -34,7 +36,9 @@ from repro.models import attention as jattn
 from repro.models import mlp as jmlp
 from repro_torch.core.routing import auction_route, topk_route
 from repro_torch.models import mlp as tmlp
-from repro_torch.models.attention import MLA, KVCache, init_mla, mla_apply
+from repro_torch.models.attention import (GQA, MLA, KVCache, init_mla,
+                                         mla_apply)
+from repro_torch.models.mamba import Mamba, SSMCache
 from repro_torch.models.mlp import MLP, MoE, init_moe, moe_apply
 
 LOGIT_TOL = 1e-5
@@ -43,10 +47,11 @@ MOE_TOL = 1e-5
 MLA_TOL = 1e-5
 PHI = "phi3.5-moe-42b-a6.6b"
 DEEPSEEK = "deepseek-v2-236b"
-RUNNABLE = ["chameleon-34b", "command-r-plus-104b", DEEPSEEK, "minitron-8b",
-            "nemotron-4-340b", PHI, "smollm-135m"]
-UNPORTED = {"hubert-xlarge": "encoder", "jamba-v0.1-52b": "mamba",
-            "mamba2-370m": "mamba"}
+MAMBA = "mamba2-370m"
+JAMBA = "jamba-v0.1-52b"
+RUNNABLE = ["chameleon-34b", "command-r-plus-104b", DEEPSEEK, JAMBA,
+            MAMBA, "minitron-8b", "nemotron-4-340b", PHI, "smollm-135m"]
+UNPORTED = {"hubert-xlarge": "encoder"}
 
 
 def _cfgs(arch):
@@ -87,28 +92,45 @@ def test_config_and_plan_equal_jax(arch):
         assert tmodel.plan_period(a) == jmodel.plan_period(b)
 
 
-@pytest.mark.parametrize("arch", sorted([*UNPORTED, PHI, DEEPSEEK]))
+@pytest.mark.parametrize("arch", sorted([*UNPORTED, PHI, DEEPSEEK, JAMBA,
+                                         MAMBA]))
 def test_unported_family_raises(arch):
-    """Each family the port lacks raises naming what it lacks; phi3.5-moe
-    and deepseek-v2, which the port now runs, build (MoE layers; MLA
-    mixers after a dense prefix) and get the JAX params tree."""
+    """Each family the port lacks raises naming what it lacks; the families
+    the port now runs build and get the JAX params tree: phi3.5-moe and
+    deepseek-v2 (MoE layers; MLA mixers after a dense prefix), mamba2 (a
+    ``Mamba`` mixer in every layer, no FFN) and jamba (attention at every
+    ``attn_period``-th layer, mamba elsewhere, the MoE at every other
+    layer, an ``MLP`` between)."""
     cfg, jcfg = _cfgs(arch)
+    if arch in UNPORTED:
+        with pytest.raises(NotImplementedError,
+                           match=f"{UNPORTED[arch]}.*ROADMAP M9"):
+            tmodel.init_model(cfg, torch.Generator(), device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP M9"):
+            numpy_params(cfg)
+        return
+    model = tmodel.init_model(cfg, torch.Generator(), device="cpu")
+    n_pre = cfg.n_dense_prefix
     if arch in (PHI, DEEPSEEK):
-        model = tmodel.init_model(cfg, torch.Generator(), device="cpu")
-        n_pre = cfg.n_dense_prefix
         assert all(isinstance(b.ffn, MoE) for b in model.layers[n_pre:])
         assert all(isinstance(b.ffn, MLP) for b in model.layers[:n_pre])
         assert all(isinstance(b.mixer, MLA) == (arch == DEEPSEEK)
                    for b in model.layers)
-        theirs = jmodel.init_model(jcfg, jax.random.PRNGKey(0))[0]
-        assert (jax.tree.structure(numpy_params(cfg))
-                == jax.tree.structure(theirs))
-        return
-    with pytest.raises(NotImplementedError,
-                       match=f"{UNPORTED[arch]}.*ROADMAP M9"):
-        tmodel.init_model(cfg, torch.Generator(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP M9"):
-        numpy_params(cfg)
+    elif arch == MAMBA:
+        assert all(isinstance(b.mixer, Mamba) and not hasattr(b, "ffn")
+                   for b in model.layers)
+    else:
+        for i, b in enumerate(model.layers):
+            attn = i % cfg.attn_period == 0
+            assert isinstance(b.mixer, GQA if attn else Mamba), i
+            assert isinstance(b.ffn, MoE if i % 2 == 0 else MLP), i
+    assert [("mamba" if isinstance(b.mixer, Mamba) else "attn",
+             "moe" if isinstance(getattr(b, "ffn", None), MoE)
+             else "mlp" if hasattr(b, "ffn") else None)
+            for b in model.layers] == jmodel.layer_plan(jcfg)
+    theirs = jmodel.init_model(jcfg, jax.random.PRNGKey(0))[0]
+    assert (jax.tree.structure(numpy_params(cfg))
+            == jax.tree.structure(theirs))
 
 
 def test_unported_pieces_raise():
@@ -251,21 +273,44 @@ def test_apply_model_matches_jax(arch, mode):
     _close(got.logits.numpy(), want.logits, arch)
 
 
-def _jax_layer_caches(jcfg, caches, field):
-    """A JAX cache tree's ``field`` per layer, in the port's layer order
-    (``prefix`` first, then ``body["sub{j}"]`` at each period)."""
+def _jax_layer_caches(jcfg, caches):
+    """A JAX cache tree as one cache per layer, numpy leaves, in the
+    port's layer order (``prefix`` first, then ``body["sub{j}"]`` at each
+    period)."""
     period = jmodel.plan_period(jcfg)
     n_periods = (jcfg.n_layers - jcfg.n_dense_prefix) // period
-    out = [np.asarray(getattr(c, field)) for c in caches["prefix"]]
-    out += [np.asarray(getattr(caches["body"][j], field))[r]
-            for r in range(n_periods) for j in range(period)]
-    return np.stack(out)
+    out = [type(c)(*(np.asarray(x) for x in c)) for c in caches["prefix"]]
+    out += [type(c)(*(np.asarray(x)[r] for x in c))
+            for r in range(n_periods) for c in caches["body"]]
+    return out
+
+
+_CACHE_FIELDS = {KVCache: ("k", "v"), SSMCache: ("state", "conv")}
+
+
+def _caches_close(got, want, what, length):
+    """The port's caches against JAX's (``_jax_layer_caches``): the same
+    kind per layer, each field stacked over the layers of that kind within
+    ``LOGIT_TOL`` x its largest |value|, every ``length`` ``length``."""
+    assert [type(c).__name__ for c in got] == \
+        [type(c).__name__ for c in want], what
+    for kind, fields in _CACHE_FIELDS.items():
+        idx = [i for i, c in enumerate(got) if isinstance(c, kind)]
+        for field in fields if idx else ():
+            _close(np.stack([getattr(got[i], field).numpy() for i in idx]),
+                   np.stack([getattr(want[i], field) for i in idx]),
+                   f"{what} {field}")
+    assert all(int(c.length) == length for c in got), what
+    assert all(int(c.length) == length for c in want), what
+    assert all(c.state.dtype == torch.float32 for c in got
+               if isinstance(c, SSMCache))
 
 
 @pytest.mark.parametrize("arch", RUNNABLE)
 def test_prefill_then_decode_step_match_jax(arch):
     """Prefill S - 1 tokens into S + 4 caches, then decode the last one:
-    the caches and both steps' logits as in JAX."""
+    the caches (``k`` / ``v`` of attention layers, ``state`` / ``conv`` of
+    mamba layers, every ``length``) and both steps' logits as in JAX."""
     cfg, jcfg, params, model, toks = _setup(arch)
     B, S = toks.shape
     axes, shd = _axes(jcfg), Sharder()
@@ -283,19 +328,15 @@ def test_prefill_then_decode_step_match_jax(arch):
         pre = tmodel.apply_model(model, {"tokens": torch.tensor(
             toks[:, :-1])}, caches=tc)
         _close(pre.logits.numpy(), jpre.logits, "prefill")
-        for field in ("k", "v"):
-            got = np.stack([getattr(c, field).numpy() for c in pre.caches])
-            _close(got, _jax_layer_caches(jcfg, jpre.caches, field), field)
-        assert all(int(c.length) == S - 1 for c in pre.caches)
+        _caches_close(pre.caches, _jax_layer_caches(jcfg, jpre.caches),
+                      "prefill", S - 1)
         dec = tmodel.apply_model(
             model, {"tokens": torch.tensor(toks[:, -1:])}, caches=pre.caches,
             decode=True, pos_offset=torch.tensor(S - 1))
     _close(dec.logits.numpy(), jdec.logits, "decode")
-    assert all(isinstance(c, KVCache) and int(c.length) == S
-               for c in dec.caches)
-    for field in ("k", "v"):
-        got = np.stack([getattr(c, field).numpy() for c in dec.caches])
-        _close(got, _jax_layer_caches(jcfg, jdec.caches, field), field)
+    assert all(isinstance(c, (KVCache, SSMCache)) for c in dec.caches)
+    _caches_close(dec.caches, _jax_layer_caches(jcfg, jdec.caches), "decode",
+                  S)
 
 
 # ---------------------------------------------------------------------------

@@ -37,8 +37,8 @@ from repro_torch.serve.engine import greedy_generate
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SERVE_TOL = 1e-5
 RUNNABLE = ["chameleon-34b", "command-r-plus-104b", "deepseek-v2-236b",
-            "minitron-8b", "nemotron-4-340b", "phi3.5-moe-42b-a6.6b",
-            "smollm-135m"]
+            "jamba-v0.1-52b", "mamba2-370m", "minitron-8b",
+            "nemotron-4-340b", "phi3.5-moe-42b-a6.6b", "smollm-135m"]
 
 
 @pytest.mark.parametrize("arch", RUNNABLE)
@@ -245,6 +245,78 @@ def test_deepseek_constants_fit_the_smoke():
         chip_smoke.MLA_CONSTANTS.stat().st_size < 16 << 20
 
 
+def test_mamba_constants_fit_the_smoke():
+    """The committed mamba2 constants were made for the SSM phase's setup
+    (full width and depth): every step and request of the JSON; in the
+    npz the ``state`` and ``conv`` rows of layers SSM_LAYERS for the
+    first SSM_REQUESTS requests, at mamba2-370m's widths."""
+    want = json.loads(chip_smoke.SSM_CONSTANTS.read_text())
+    assert {k: want[k] for k in chip_smoke.ssm_setup()} == \
+        chip_smoke.ssm_setup()
+    assert len(want["steps"]) == chip_smoke.SERVE_NEW
+    for rec in want["steps"]:
+        assert np.asarray(rec["ids"]).shape == (chip_smoke.SERVE_B, 5)
+    cfg = get_config(chip_smoke.SSM_ARCH)
+    s, L, R = cfg.ssm, len(chip_smoke.SSM_LAYERS), chip_smoke.SSM_REQUESTS
+    di = s.d_inner(cfg.d_model)
+    assert chip_smoke.SSM_LAYERS == (0, cfg.n_layers - 1)
+    z = np.load(chip_smoke.SSM_STATES)
+    assert z["layers"].tolist() == list(chip_smoke.SSM_LAYERS)
+    assert z["state"].shape == (L, R, s.n_heads(cfg.d_model), s.head_dim,
+                                s.d_state)
+    assert z["conv"].shape == (L, R, s.d_conv - 1, di + 2 * s.d_state)
+    assert z["state"].dtype == z["conv"].dtype == np.float32
+    assert np.abs(z["state"]).max() > 0
+
+
+@pytest.mark.parametrize("fault", ["B and C swapped", "decay doubled",
+                                   "conv cache one row early"])
+def test_check_ssm_rows_and_serve_catch_wrong_ssd(fault, monkeypatch):
+    """The SSM phase's checks have teeth: an SSD that swaps B and C or
+    doubles the decay moves the prefill's state rows past
+    ``check_ssm_rows``' tolerance and the logits past ``check_serve``'s; a
+    conv cache taken one row early moves the conv rows and the decode
+    steps. mamba2's smoke variant at 2 layers, 2 prompts of 128 tokens (2
+    SSD chunks)."""
+    from repro_torch.models import mamba
+    cfg = dataclasses.replace(smoke_variant(get_config("mamba2-370m")),
+                              n_layers=2)
+    monkeypatch.setattr(chip_smoke, "SSM_LAYERS", (0, 1))
+    model = model_from_params(cfg, numpy_params(cfg, seed=0), device="cpu")
+    prompts = torch.tensor(chip_smoke.serve_prompts(cfg.vocab, 2, 128))
+    rows = chip_smoke.ssm_rows(model, prompts, 132)
+    steps, *_ = chip_smoke.port_serve(model, prompts, 4, 132)
+    want_rows = dict(rows, layers=np.array([0, 1]))
+    want = [chip_smoke.top5_records(lg) for _, lg in steps]
+    chip_smoke.check_ssm_rows(rows, want_rows)
+    chip_smoke.check_serve(steps, want)
+    ssd, conv = mamba._ssd_chunked, mamba._causal_conv
+
+    def early(u, w, b, cache_conv=None):
+        out, c = conv(u, w, b, cache_conv)
+        if cache_conv is not None:
+            return out, c
+        K = w.shape[0]
+        up = torch.cat([u.new_zeros((u.shape[0], K - 1, u.shape[2])), u], 1)
+        return out, up[:, -K:-1]
+    wrong = {
+        "B and C swapped": ("_ssd_chunked", lambda xh, dt, A, Bm, Cm, chunk,
+                            init_state=None: ssd(xh, dt, A, Cm, Bm, chunk,
+                                                 init_state)),
+        "decay doubled": ("_ssd_chunked", lambda xh, dt, A, Bm, Cm, chunk,
+                          init_state=None: ssd(xh, dt, 2 * A, Bm, Cm, chunk,
+                                               init_state)),
+        "conv cache one row early": ("_causal_conv", early),
+    }[fault]
+    monkeypatch.setattr(mamba, *wrong)
+    bad_rows = chip_smoke.ssm_rows(model, prompts, 132)
+    bad, *_ = chip_smoke.port_serve(model, prompts, 4, 132)
+    with pytest.raises(AssertionError, match="layer 0 SSM"):
+        chip_smoke.check_ssm_rows(bad_rows, want_rows)
+    with pytest.raises(AssertionError):
+        chip_smoke.check_serve(bad, want)
+
+
 def _moe_marks(n_steps=4, L=2, B=3):
     return {"prefill_unstable": np.zeros(L, bool),
             "prefill_flips": np.zeros(L, np.int32),
@@ -414,8 +486,23 @@ def test_serve_cli_on_cpu_deepseek():
     assert [ln.split(":")[0] for ln in lines[3:]] == ["  req0", "  req1"]
 
 
+@pytest.mark.parametrize("arch", ["mamba2-370m", "jamba-v0.1-52b"])
+def test_serve_cli_on_cpu_ssm(arch):
+    """mamba2's smoke variant (4 mamba layers) and jamba's (16 layers:
+    attention at 0 and 8, mamba elsewhere, the MoE at every other layer)
+    through the CLI: SSD prefill and recurrent decode."""
+    proc = _cli("--arch", arch, "--smoke", "--batch", "2", "--prompt-len",
+                "8", "--max-new", "4", "--device", "cpu")
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.splitlines()
+    assert lines[0].startswith("prefill: 2x8 in ")
+    assert lines[1].startswith("decode: 3 steps in ")
+    assert [ln.split(":")[0] for ln in lines[3:]] == ["  req0", "  req1"]
+
+
 def test_serve_cli_unported_family_raises():
-    proc = _cli("--arch", "mamba2-370m", "--smoke", "--device", "cpu")
+    """The one family the serve path lacks, the encoder (hubert-xlarge,
+    ROADMAP M9), is refused: it has no decode path."""
+    proc = _cli("--arch", "hubert-xlarge", "--smoke", "--device", "cpu")
     assert proc.returncode != 0
-    assert "NotImplementedError" in proc.stderr
-    assert "ROADMAP M9" in proc.stderr
+    assert "encoder archs have no decode path" in proc.stderr

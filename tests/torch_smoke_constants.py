@@ -1,6 +1,6 @@
 """Constants of the JAX package that ``chip_smoke.py`` holds the port to.
 
-    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_smoke_constants.py [rounds|serve|moe|deepseek]
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_smoke_constants.py [rounds|serve|moe|deepseek|mamba]
 
 ``chip_smoke.py`` runs where JAX is not installed, so what it compares
 with the JAX package is made here, on the CPU, from the same inputs:
@@ -39,8 +39,16 @@ with the JAX package is made here, on the CPU, from the same inputs:
   also holds the hidden state after layer 0 and layer 0's ``c_kv`` and
   ``k_rope`` cache rows at ``chip_smoke.sample_positions`` (recorded from
   inside the jitted prefill).
+* ``mamba`` (about 70 s on 8 cores, 3.2 GiB resident at its
+  peak): the SSM serve phase's reference. mamba2-370m at full width and
+  depth (48 layers), ``numpy_params(cfg, chip_smoke.SEED)``, the serve
+  phase's prompts and new tokens: the top-5 records per step to
+  ``chip_smoke.SSM_CONSTANTS`` and, to ``chip_smoke.SSM_STATES``, the SSM
+  ``state`` and ``conv`` rows of layers ``chip_smoke.SSM_LAYERS`` for the
+  first ``chip_smoke.SSM_REQUESTS`` requests after the prefill (the
+  caches the jitted prefill returns).
 
-With no argument it makes all four.
+With no argument it makes all five.
 """
 import json
 import pathlib
@@ -94,10 +102,11 @@ def rounds() -> None:
 
 
 def jax_generate(cfg, params, axes, prompts, max_new: int,
-                 S_max: int | None = None):
+                 S_max: int | None = None, on_prefill=None):
     """The JAX ``greedy_generate`` (``make_prefill_step``, then
     ``make_serve_step`` with the position from ``lengths[0]``), also
-    returning each step's last-position logits. Returns ``(tokens (B,
+    returning each step's last-position logits. ``on_prefill``, if given,
+    is called with the caches the prefill returns. Returns ``(tokens (B,
     max_new), [logits (B, vocab)] * max_new)`` as numpy."""
     shd = Sharder()
     B, S = prompts.shape
@@ -118,6 +127,8 @@ def jax_generate(cfg, params, axes, prompts, max_new: int,
         return out.logits[:, -1], out.caches
 
     logits, caches = prefill(params, jnp.asarray(prompts), caches)
+    if on_prefill is not None:
+        on_prefill(caches)
     steps = [np.asarray(logits)]
     for i in range(max_new - 1):
         nxt = jnp.argmax(logits, axis=-1).astype(jnp.int32)
@@ -220,14 +231,42 @@ def _record_layer0(rows: dict, positions: np.ndarray):
     return lambda: setattr(jmodel, "_apply_sublayer", original)
 
 
+def _to_jax(tree):
+    """A numpy params tree's leaves as JAX arrays, in place, leaf by leaf
+    so that numpy and JAX copies never pile up."""
+    for k, x in tree.items():
+        if isinstance(x, dict):
+            _to_jax(x)
+        elif isinstance(x, list):
+            for sub in x:
+                _to_jax(sub)
+        else:
+            tree[k] = jnp.asarray(x)
+    return tree
+
+
+def _jax_params(cfg):
+    """``numpy_params(cfg, chip_smoke.SEED)`` as JAX arrays, and the JAX
+    ``init_model``'s logical axes (traced, so no weight is drawn)."""
+    from repro.models.model import init_model
+
+    from repro_torch.interop import numpy_params
+    params = _to_jax(numpy_params(cfg, chip_smoke.SEED))
+    held = {}
+
+    def params_only():
+        p, held["axes"] = init_model(cfg, jax.random.PRNGKey(0))
+        return p
+    jax.eval_shape(params_only)
+    return params, held["axes"]
+
+
 def _routed(cfg, constants: pathlib.Path, routing: pathlib.Path,
             setup: dict, layer0: bool = False) -> None:
     """The reference of a routed serve phase (``moe``, ``deepseek``) for
     ``cfg`` (the JAX package's config, cut to the phase's depth)."""
     from repro.core.routing import auction_route, topk_route
-    from repro.models.model import init_model, layer_plan
-
-    from repro_torch.interop import numpy_params
+    from repro.models.model import layer_plan
     t0 = time.perf_counter()
     e = cfg.moe
     B, S, new = chip_smoke.SERVE_B, chip_smoke.SERVE_S, chip_smoke.SERVE_NEW
@@ -236,26 +275,7 @@ def _routed(cfg, constants: pathlib.Path, routing: pathlib.Path,
                            if ffn == "moe"], np.int32)
     L = len(moe_layers)
     cap = min(max(1, int(T * e.top_k / e.n_experts * e.capacity_factor)), T)
-    params = numpy_params(cfg, chip_smoke.SEED)
-
-    def to_jax(tree):     # leaf by leaf, so numpy and JAX copies never pile up
-        for k, x in tree.items():
-            if isinstance(x, dict):
-                to_jax(x)
-            elif isinstance(x, list):
-                for sub in x:
-                    to_jax(sub)
-            else:
-                tree[k] = jnp.asarray(x)
-        return tree
-    params = to_jax(params)
-    held = {}
-
-    def params_only():          # traced, so no weight is drawn
-        p, held["axes"] = init_model(cfg, jax.random.PRNGKey(0))
-        return p
-    jax.eval_shape(params_only)
-    axes = held["axes"]
+    params, axes = _jax_params(cfg)
     print(f"# {cfg.name}, {cfg.n_layers} layers: weights in "
           f"{time.perf_counter() - t0:.0f} s", flush=True)
 
@@ -359,8 +379,55 @@ def deepseek() -> None:
           f" GiB", flush=True)
 
 
+def ssm_rows(cfg, caches) -> dict:
+    """The SSM ``state`` and ``conv`` rows of layers ``chip_smoke.SSM_LAYERS``
+    for the first ``chip_smoke.SSM_REQUESTS`` requests, from a JAX cache
+    tree (``cfg`` the JAX package's config), as float32 numpy arrays
+    ``(layers, requests, ...)``."""
+    from repro.models.model import plan_period
+    period = plan_period(cfg)
+    n_pre = cfg.n_dense_prefix
+    R = chip_smoke.SSM_REQUESTS
+    out = {"state": [], "conv": []}
+    for layer in chip_smoke.SSM_LAYERS:
+        r, j = divmod(layer - n_pre, period)
+        c = caches["prefix"][layer] if layer < n_pre else \
+            type(caches["body"][j])(*(x[r] for x in caches["body"][j]))
+        for k in out:
+            out[k].append(np.asarray(getattr(c, k)[:R], np.float32))
+    return {k: np.stack(v) for k, v in out.items()}
+
+
+def mamba() -> None:
+    import resource
+    from repro.configs.base import get_config
+    t0 = time.perf_counter()
+    cfg = get_config(chip_smoke.SSM_ARCH)
+    params, axes = _jax_params(cfg)
+    print(f"# {cfg.name}, {cfg.n_layers} layers: weights in "
+          f"{time.perf_counter() - t0:.0f} s", flush=True)
+    B, S, new = chip_smoke.SERVE_B, chip_smoke.SERVE_S, chip_smoke.SERVE_NEW
+    rows = {}
+    tokens, steps = jax_generate(
+        cfg, params, axes, chip_smoke.serve_prompts(cfg.vocab, B, S), new,
+        S_max=S + new, on_prefill=lambda c: rows.update(ssm_rows(cfg, c)))
+    del params
+    np.savez_compressed(chip_smoke.SSM_STATES,
+                        layers=np.asarray(chip_smoke.SSM_LAYERS, np.int32),
+                        **rows)
+    chip_smoke.SSM_CONSTANTS.write_text(json.dumps(dict(
+        chip_smoke.ssm_setup(), tokens=tokens.tolist(),
+        steps=[chip_smoke.top5_records(lg) for lg in steps])) + "\n")
+    print(f"# wrote {chip_smoke.SSM_CONSTANTS.relative_to(ROOT)} and "
+          f"{chip_smoke.SSM_STATES.relative_to(ROOT)} "
+          f"({time.perf_counter() - t0:.0f} s); request 0 tokens "
+          f"{tokens[0].tolist()}; peak resident memory "
+          f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.1f}"
+          f" GiB", flush=True)
+
+
 if __name__ == "__main__":
-    which = sys.argv[1:] or ["rounds", "serve", "moe", "deepseek"]
+    which = sys.argv[1:] or ["rounds", "serve", "moe", "deepseek", "mamba"]
     for name in which:
         {"rounds": rounds, "serve": serve, "moe": moe,
-         "deepseek": deepseek}[name]()
+         "deepseek": deepseek, "mamba": mamba}[name]()
