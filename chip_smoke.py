@@ -175,9 +175,28 @@ Drives ``src/repro_torch`` only (no ``jax``, nothing of ``repro``):
    kernel (K1-K6) may launch in a prefill or a decode step. A profiled
    prefill and decode step give device busy, idle share, the largest
    device items and their split by kernel name, and the phase logs the
-   peak device memory.
+   peak device memory;
+15. drives the training path (``phase_train``, ROADMAP M9b.6):
+   smollm-135m at full width and depth (30 layers, d_model 576, 9 / 3
+   heads of 64, vocab 49,152) on ``numpy_params`` weights (seed 0),
+   float32 with TF32 off, TRAIN_STEPS (3) steps of ``make_train_step`` on
+   8 x 1024-token batches from the port's ``make_batch`` (DataConfig seed
+   0) with the train CLI's optimizer settings. The step-0 gradients of
+   ``embed``, layer 0's ``wq``, layer 29's ``w2`` and ``final_norm`` at
+   sampled entries, each step's loss, lr and ``grad_norm`` are held to
+   the JAX package's ``make_train_step`` on the same weights and rows
+   (``tests/torch_smoke_train.json``); K6 (with its log-sum-exp output)
+   must launch once per layer in each step, all on ``flash_fwd_wgmma``,
+   and no other port kernel; the train state must come back from
+   ``checkpoint.store`` bit for bit. The first step is a warm-up and the
+   others are timed (tok/s); a profiled step gives device busy, idle
+   share, the largest device items and their split by kernel name; the
+   phase logs the peak device memory. Phase 2 also holds K6's
+   log-sum-exp output to its plain version's (LSE_TOL) at every shape
+   and times it at the serve shape.
 
-The phases' walls are logged on one ``[walls]`` line at the end.
+The phases' walls are logged on one ``[walls]`` line at the end
+(``train`` among them).
 
 Prints one JSON line per kernel summary, the ``nvidia-smi`` name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero
@@ -268,6 +287,41 @@ SSM_CONSTANTS = ROOT / "tests" / "torch_smoke_mamba.json"
 SSM_STATES = ROOT / "tests" / "torch_smoke_mamba.npz"
 SSM_LAYERS = (0, 47)
 SSM_REQUESTS = 2
+# the training path: smollm-135m at full width and depth on numpy_params
+# weights, float32 (no TF32), TRAIN_STEPS steps of make_train_step on
+# TRAIN_B x TRAIN_S-token batches from the port's make_batch (DataConfig
+# seed SEED), with the train CLI's optimizer settings (peak lr TRAIN_LR,
+# TRAIN_WARMUP warm-up steps, the cosine's decay over the run). The JAX
+# package's loss, lr and grad_norm per step, and its step-0 gradients of
+# TRAIN_LEAVES at TRAIN_SAMPLE flat indices of each (its largest |g| among
+# them) are in TRAIN_CONSTANTS (`PYTHONPATH=src JAX_PLATFORMS=cpu python
+# tests/torch_smoke_constants.py train`). TRAIN_LEAVES maps a port
+# parameter to its JAX params-tree path and its index along the stacked
+# period axis (None for a leaf outside ``body``)
+TRAIN_ARCH = "smollm-135m"
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 1024, 3
+TRAIN_LR, TRAIN_WARMUP = 3e-4, 20
+TRAIN_CONSTANTS = ROOT / "tests" / "torch_smoke_train.json"
+# the rows make_batch gives on the card, on which the JAX constants were
+# made: numpy's Generator.zipf, which draws them, differs between numpy
+# versions (`python3 tests/torch_smoke_train_rows.py OUT.npz` on the card)
+TRAIN_ROWS = ROOT / "tests" / "torch_smoke_train.npz"
+TRAIN_LEAVES = {
+    "embed": (("embed",), None),
+    "layers.0.mixer.wq.weight": (("body", "sub0", "mixer", "wq"), 0),
+    "layers.29.ffn.w2.weight": (("body", "sub0", "ffn", "w2"), 29),
+    "final_norm.g": (("final_norm", "g"), None)}
+TRAIN_SAMPLE = 1024
+# The training check's tolerances against JAX: float32 on both sides
+# (cuBLAS, K6's split-TF32 forward, the plain attention backward against
+# XLA on the CPU), other summation orders. The loss of each step within
+# TRAIN_LOSS_TOL x JAX's and grad_norm within TRAIN_NORM_TOL x JAX's; the
+# sampled step-0 gradients within TRAIN_GRAD_TOL x the leaf's largest |g|
+# (JAX's). A backward that misreads K6's log-sum-exp (a base-2 or a
+# missing scale) rescales every attention gradient by far more
+TRAIN_LOSS_TOL = 1e-4
+TRAIN_NORM_TOL = 1e-3
+TRAIN_GRAD_TOL = 1e-3
 # deepseek's gate logits on the card differ from JAX's on the CPU by up to
 # 7.7e-6 of their largest |logit| (after layer 0 and K6; phi's first layer
 # has no such depth), so its marks move the scores by 1e-5 of it
@@ -294,6 +348,10 @@ FLASH_SWEEP = [
     ((2, 64, 64, 4, 2, 16, 16), True, torch.bfloat16),
 ]
 FLASH_TOL = {torch.float32: 3e-5, torch.bfloat16: 2e-2}
+# K6's log-sum-exp output against the plain version's, absolute, natural
+# log units: the scores differ by about 1e-6 of their size (split TF32,
+# bf16 products exact in float32) and the sums by the SFU's exp2 (2 ulp)
+LSE_TOL = 1e-4
 # K6 in float32 and bfloat16, besides the serve shape: (B, Sq, Sk, H, KV,
 # dh, dv), causal, dtype -- Sq and Sk off the 64-row query and 64/32-key
 # tiles, Sq != Sk both ways, MQA, every head-width class
@@ -972,17 +1030,30 @@ def kernels_flash(dev) -> dict:
     for dims, causal, dtype in cases:
         q, k, v = flash_inputs(rng, dims, dtype, dev)
         got = flash_attention_fwd(q, k, v, causal=causal)
-        want = flash_attention_ref(q, k, v, causal=causal)
+        want, want_lse = flash_attention_ref(q, k, v, causal=causal,
+                                             return_lse=True)
         if got.dtype != dtype or got.shape != want.shape:
             raise AssertionError(f"K6 {dims}: {got.dtype} {got.shape}")
         err = (got.float() - want.float()).abs().max().item()
         if not err <= FLASH_TOL[dtype]:
             raise AssertionError(f"K6 {dims} causal={causal} {dtype}: max "
                                  f"abs err {err} > {FLASH_TOL[dtype]}")
+        got2, lse = flash_attention_fwd(q, k, v, causal=causal,
+                                        return_lse=True)
+        lse_err = (lse - want_lse).abs().max().item()
+        same = torch.equal(got2, got)
+        if not same or lse.dtype != torch.float32 or not lse_err <= LSE_TOL:
+            raise AssertionError(f"K6 {dims} causal={causal} {dtype} with "
+                                 f"its lse: lse max abs err {lse_err} "
+                                 f"(tolerance {LSE_TOL}); output equal to "
+                                 f"the call without: {same}")
+        del got2, lse, want_lse
         sweep.append(dict(dims=list(dims), causal=causal,
-                          dtype=str(dtype).split(".")[1], max_abs_err=err))
+                          dtype=str(dtype).split(".")[1], max_abs_err=err,
+                          lse_max_abs_err=lse_err))
         log(f"[kernels] K6 {dims} causal={causal} {dtype}: max abs err "
-            f"{err:.3g} (tolerance {FLASH_TOL[dtype]})")
+            f"{err:.3g} (tolerance {FLASH_TOL[dtype]}); lse {lse_err:.3g} "
+            f"(tolerance {LSE_TOL}), output unchanged by it")
         if dims in (moe, mla):
             shapes[dims] = kernels_flash_at(dims, q, k, v, want, err)
             del q, k, v, want
@@ -1016,6 +1087,11 @@ def kernels_flash(dev) -> dict:
                          lambda: flash_attention_ref(q, k, v, causal=True),
                          "flash_fwd_"))
     row["bf16_ms"] = took(row, "bf16_ms", bf16)
+    row["lse_ms"] = took(row, "lse_ms", time_ms(
+        lambda: flash_attention_fwd(q, k, v, causal=True, return_lse=True),
+        symbol="flash_fwd_"))
+    log(f"[kernels] K6 at the serve shape with its lse output: device "
+        f"{row['lse_ms']:.4f} ms, without {row['ms']:.4f} ms")
     row["library_ms"] = took(row, "library_ms", time_ms(library))
     row["moe_shape"], row["mla_shape"] = shapes[moe], shapes[mla]
     return {"flash_attention_fwd": row}
@@ -3010,6 +3086,191 @@ def phase_ssm(dev, counts: dict, card: str) -> dict:
                 n_params=n_params, peak_bytes=peak)
 
 
+def train_setup() -> dict:
+    return dict(arch=TRAIN_ARCH, B=TRAIN_B, S=TRAIN_S, n_steps=TRAIN_STEPS,
+                seed=SEED, lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                leaves=list(TRAIN_LEAVES),
+                rows_numpy=str(np.load(TRAIN_ROWS)["numpy_version"]))
+
+
+def jax_layout(name: str, t: torch.Tensor) -> np.ndarray:
+    """A port parameter (or its gradient) in the JAX layout, as numpy: an
+    ``nn.Linear`` weight transposed back to the ``x @ W`` matrix."""
+    t = t.detach().float().cpu()
+    return (t.T if name.endswith(".weight") else t).numpy()
+
+
+def check_train_grads(grads: dict, want: dict) -> dict:
+    """The step-0 gradients of TRAIN_LEAVES at the JAX constants' sampled
+    flat indices (JAX layout), each within TRAIN_GRAD_TOL x the leaf's
+    largest |g| (JAX's). Returns error / tolerance per leaf."""
+    out = {}
+    for name, rec in want.items():
+        got = jax_layout(name, grads[name])
+        if list(got.shape) != rec["shape"]:
+            raise AssertionError(f"train grad {name}: shape {got.shape}, "
+                                 f"JAX's {rec['shape']}")
+        vals = got.reshape(-1)[np.asarray(rec["index"])].astype(np.float64)
+        tol = TRAIN_GRAD_TOL * rec["absmax"]
+        err = np.abs(vals - np.asarray(rec["value"])).max()
+        if not err <= tol:
+            raise AssertionError(f"train step-0 grad of {name}: max abs "
+                                 f"err {err:.3g} > {tol:.3g} at the "
+                                 f"sampled indices")
+        out[name] = float(err / tol)
+    return out
+
+
+def check_train_metrics(step: int, m: dict, want: dict) -> dict:
+    """One step's loss and grad_norm within their tolerances of JAX's
+    (relative), its lr JAX's float32. Returns error / tolerance."""
+    lr = float(m["lr"])
+    if np.float32(lr) != np.float32(want["lr"]):
+        raise AssertionError(f"train step {step}: lr {lr} != JAX's "
+                             f"{want['lr']}")
+    out = {}
+    for key, tol in (("loss", TRAIN_LOSS_TOL),
+                     ("grad_norm", TRAIN_NORM_TOL)):
+        err = abs(float(m[key]) - want[key]) / abs(want[key])
+        if not err <= tol:
+            raise AssertionError(f"train step {step}: {key} "
+                                 f"{float(m[key])} vs JAX's {want[key]}: "
+                                 f"relative error {err:.3g} > {tol}")
+        out[key] = err / tol
+    return out
+
+
+def phase_train(dev, counts: dict, card: str) -> dict:
+    """smollm-135m at full width and depth, trained on the card from
+    ``numpy_params`` weights: the step-0 gradients of TRAIN_LEAVES and
+    TRAIN_STEPS steps of ``make_train_step`` (the first a warm-up, the
+    others timed) held to the JAX package's constants, K6 launched once
+    per layer in each step (set to 0 just before it, read just after) and
+    no other port kernel; a save and restore of the train state through
+    ``checkpoint.store`` bit for bit; one profiled step (every port
+    kernel in it ``flash_fwd_wgmma``, one per layer) and the peak device
+    memory."""
+    import shutil
+
+    from repro_torch.checkpoint import store
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.masking import tree_leaves
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.interop import model_from_params, numpy_params
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import (TrainConfig, init_train_state,
+                                        load_state_tree, loss_fn,
+                                        make_train_step, params_of,
+                                        state_tree)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on; the train check assumes "
+                             "full float32")
+    want = json.loads(TRAIN_CONSTANTS.read_text())
+    setup = train_setup()
+    if {k: want[k] for k in setup} != setup:
+        raise AssertionError(f"{TRAIN_CONSTANTS.name} was made for "
+                             f"{ {k: want[k] for k in setup} }, not {setup}")
+    cfg = get_config(TRAIN_ARCH)
+    t0 = time.perf_counter()
+    model = model_from_params(cfg, numpy_params(cfg, SEED), device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S,
+                      global_batch=TRAIN_B, seed=SEED)
+    batches = [make_batch(dcfg, step, dev) for step in range(TRAIN_STEPS)]
+    rows = np.load(TRAIN_ROWS)
+    for step, batch in enumerate(batches):
+        for key in ("tokens", "labels"):
+            if not np.array_equal(batch[key].cpu().numpy(), rows[key][step]):
+                raise AssertionError(
+                    f"make_batch's {key} of step {step} differ from the rows "
+                    f"the JAX constants were made on (numpy "
+                    f"{rows['numpy_version']} there, {np.__version__} here): "
+                    f"remake {TRAIN_ROWS.name} with "
+                    f"tests/torch_smoke_train_rows.py on this machine, then "
+                    f"the constants")
+    log(f"[train] {cfg.name}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads of "
+        f"{cfg.dh}, vocab {cfg.vocab}: {n_params} parameters and "
+        f"{TRAIN_STEPS} batches of {TRAIN_B} x {TRAIN_S} tokens on the card "
+        f"in {time.perf_counter() - t0:.1f} s")
+
+    params = params_of(model)
+    loss, _ = loss_fn(model, batches[0])
+    grads = dict(zip(TRAIN_LEAVES, torch.autograd.grad(
+        loss, [params[n] for n in TRAIN_LEAVES])))
+    del loss
+    grad_check = check_train_grads(grads, want["grads"])
+    del grads
+    log(f"[train] step-0 gradients at {TRAIN_SAMPLE} sampled entries of "
+        f"each leaf against JAX's (error / tolerance): {grad_check}")
+
+    tcfg = TrainConfig(optimizer=AdamWConfig(
+        lr_peak=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+        decay_steps=TRAIN_STEPS))
+    state = init_train_state(cfg, tcfg, model)
+    step_fn = make_train_step(cfg, tcfg)
+    walls, checks = [], []
+    for step in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        reset_counts()
+        (state, m), wall = solve(step_fn, state, batches[step])
+        c = read_counts()
+        if c["flash_attention_fwd"] != cfg.n_layers:
+            raise AssertionError(f"train step {step}: K6 launched "
+                                 f"{c['flash_attention_fwd']} times, not "
+                                 f"once per layer ({cfg.n_layers})")
+        require_not_launched(c, [n for n in c if n != "flash_attention_fwd"],
+                             f"train step {step}")
+        checks.append(check_train_metrics(step, m, want["steps"][step]))
+        ref = want["steps"][step]
+        log(f"[train] step {step}{' (warm-up)' if step == 0 else ''}: "
+            f"{wall * 1e3:.2f} ms ({TRAIN_B * TRAIN_S / wall:.0f} tok/s), "
+            f"loss {float(m['loss']):.6f} (JAX {ref['loss']:.6f}), "
+            f"grad_norm {float(m['grad_norm']):.6f} (JAX "
+            f"{ref['grad_norm']:.6f}), lr {float(m['lr']):.4g}; error / "
+            f"tolerance {checks[-1]}; K6 launches "
+            f"{c['flash_attention_fwd']}")
+        if step:
+            walls.append(wall)
+        counts.setdefault("train_step", c)
+
+    path = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(path, ignore_errors=True)
+    tree = state_tree(state)
+    t0 = time.perf_counter()
+    store.save(str(path), TRAIN_STEPS, tree)
+    back = store.restore(str(path), TRAIN_STEPS, tree, device=dev)
+    t_ckpt = time.perf_counter() - t0
+    saved, restored = tree_leaves(tree), tree_leaves(back)
+    if len(saved) != len(restored) or not all(
+            a.dtype == b.dtype and b.device.type == dev.type
+            and torch.equal(a, b.to(a.device))
+            for a, b in zip(saved, restored)):
+        raise AssertionError("train state: a leaf did not come back from "
+                             "checkpoint.store bit for bit")
+    state = load_state_tree(state, back)
+    shutil.rmtree(path, ignore_errors=True)
+    log(f"[train] save and restore of the train state ({len(saved)} leaves,"
+        f" step {int(state.opt.step)}): every leaf back bit for bit, "
+        f"{t_ckpt:.1f} s")
+
+    t_step = sum(walls) / len(walls)
+    prof = profile(f"train step {TRAIN_B} x {TRAIN_S}", t_step, step_fn,
+                   state, batches[0], top=16, split=True)
+    k6 = {name: n for name, (_, n) in prof["port_kernels"].items()}
+    if k6 != {"flash_fwd_wgmma": cfg.n_layers}:
+        raise AssertionError(f"train step: port kernels {k6}, not "
+                             f"{cfg.n_layers} launches of flash_fwd_wgmma")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[train] mean of the timed steps {t_step * 1e3:.2f} ms "
+        f"({TRAIN_B * TRAIN_S / t_step:.0f} tok/s); peak device memory "
+        f"{peak / 2**30:.2f} GiB; on {card}")
+    return dict(walls=walls, profile=prof, peak_bytes=peak,
+                grad_check=grad_check, checks=checks, n_params=n_params)
+
+
 def timed(walls: dict, name: str, fn, *a, **kw):
     """``fn(*a, **kw)``, its wall in seconds kept as ``walls[name]`` and
     logged."""
@@ -3081,6 +3342,12 @@ def main() -> int:
         prefill_ms_per_launch=ms / n, prefill_launches=n)
     del mla
     timed(walls, "ssm", phase_ssm, dev, counts, card)
+    train = timed(walls, "train", phase_train, dev, counts, card)
+    ms, n = train["profile"]["port_kernels"]["flash_fwd_wgmma"]
+    kernels["flash_attention_fwd"]["train"] = dict(
+        launches_per_step=counts["train_step"]["flash_attention_fwd"],
+        profiled_ms_per_launch=ms / n)
+    del train
     # K1-K3 inside each profiled grid solve, under the wrapper's name
     for name, symbol in (("grid_push_decide", "grid_push_decide_kernel"),
                          ("grid_push_decide_sched",

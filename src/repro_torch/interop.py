@@ -30,7 +30,13 @@ Model weights cross the same way:
   the JAX layout and are copied as they are: the MoE's experts ``w1``,
   ``w2``, ``w3`` and MLA's ``wk_b``, ``wv_b``; so are mamba's ``conv_w``
   ``(d_conv, di + 2 N)`` and its vectors; ``model_from_params`` builds the
-  model and loads it.
+  model and loads it;
+* ``params_tree`` is the inverse of ``load_params``: the model's
+  parameters, or any tensors keyed by its parameter names (their
+  ``.grad``, an ``OptState``'s unquantized ``m`` or ``v``), as a JAX
+  params tree of numpy arrays (``nn.Linear`` weights transposed back,
+  ``body`` stacked over the periods), so the tests compare gradients and
+  moments with the JAX package's leaf by leaf.
 
 Imports neither ``jax`` nor ``repro``.
 """
@@ -314,3 +320,53 @@ def model_from_params(cfg, params: dict, device=None) -> Model:
     ``device`` (default cuda), in the tree's dtype."""
     dtype = torch.from_numpy(np.asarray(params["embed"][:1])).dtype
     return load_params(Model(cfg, device=device, dtype=dtype), params)
+
+
+def _numpy_leaf(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def params_tree(model: Model, values: dict | None = None) -> dict:
+    """The inverse of ``load_params``: ``values`` (default: the model's
+    parameters), keyed by the model's parameter names, as the JAX
+    ``init_model`` params tree of numpy arrays. Each ``nn.Linear`` weight
+    (a name ending in ``.weight``) is transposed back to the JAX ``x @ W``
+    matrix, every other tensor kept in its (the JAX) layout; layer
+    ``n_dense_prefix + r * period + j`` goes to index ``r`` of
+    ``body["sub{j}"]``'s leading axis, the layers before it to ``prefix``.
+    bfloat16 tensors come back as float32."""
+    cfg = model.cfg
+    if values is None:
+        values = dict(model.named_parameters())
+    if values.keys() != dict(model.named_parameters()).keys():
+        raise ValueError("values must be keyed by the model's parameter "
+                         "names")
+    period = plan_period(cfg)
+    n_pre = cfg.n_dense_prefix
+    tree: dict = {"prefix": [{} for _ in range(n_pre)]}
+    stacks: dict = {}               # (j, path) -> [leaf per period]
+
+    def put(node: dict, path: list, leaf):
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf
+
+    for name, t in values.items():
+        path = name.split(".")
+        leaf = _numpy_leaf(t)
+        if path[-1] == "weight":
+            path, leaf = path[:-1], np.ascontiguousarray(leaf.T)
+        if path[0] != "layers":
+            put(tree, path, leaf)
+            continue
+        i, rest = int(path[1]), path[2:]
+        if i < n_pre:
+            put(tree["prefix"][i], rest, leaf)
+        else:
+            j = (i - n_pre) % period
+            stacks.setdefault((j, tuple(rest)), []).append(leaf)
+    body = tree.setdefault("body", {})
+    for (j, rest), leaves in stacks.items():
+        put(body.setdefault(f"sub{j}", {}), list(rest), np.stack(leaves))
+    return tree

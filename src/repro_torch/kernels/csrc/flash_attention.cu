@@ -79,7 +79,11 @@
 // rounded to bfloat16 before the PV product while l sums them unrounded.
 // Tails of Sq and Sk are masked, so any length works; key columns past Sk
 // get no weight at all. The softmax runs in base 2 on scores scaled by
-// scale * log2(e).
+// scale * log2(e). Given a non-null `lse`, both kernels also write each
+// row's natural log-sum-exp, m ln 2 + ln l, in float32: the residual from
+// which the training backward (plain PyTorch, `_FlashCore` in
+// models/attention.py, after the JAX package's `_flash_core_bwd`)
+// recomputes the probabilities.
 
 #include <cuda_bf16.h>
 #include <math_constants.h>
@@ -96,6 +100,7 @@ constexpr int kStages = 2;     // K/V ring depth
 constexpr int kQRegMax = 64;   // dh, dv up to this: q fragments in registers
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // How one call is launched, as `launch_geometry` in kernel.py chooses it
 // and passes it; the C entry launches with it after `fits` checks it.
@@ -299,9 +304,9 @@ __device__ __forceinline__ float quad_sum(float x) {
 template <typename T, bool kQReg, int kDV>
 __global__ void __launch_bounds__(kThreads) flash_fwd_mma(
     const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk, int H,
-    int KV, int dh, int dv, Geometry geo, int ch_q, int ch_k, int ch_v,
-    int vec_o, float sl2, int causal) {
+    const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+    int Sq, int Sk, int H, int KV, int dh, int dv, Geometry geo, int ch_q,
+    int ch_k, int ch_v, int vec_o, float sl2, int causal) {
   constexpr bool kF32 = std::is_same<T, float>::value;
   constexpr int BK = kQReg ? 64 : 32;
   constexpr int NT = BK / 8;                 // n8 tiles of S per warp
@@ -521,8 +526,14 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_mma(
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = qw + g + 8 * i;
-    const float inv = 1.f / fmaxf(quad_sum(l[i]), 1e-30f);
+    const float li = fmaxf(quad_sum(l[i]), 1e-30f);
+    const float inv = 1.f / li;
     if (r >= Sq) continue;
+    // m is in base 2 (scores scaled by scale * log2 e): lse = m ln 2 + ln l
+    if (lse != nullptr && tig == 0) {
+      lse[static_cast<int64_t>(blockIdx.x) * Sq + r] =
+          m[i] * kLn2 + logf(li);
+    }
     T* orow = o + ((static_cast<int64_t>(b) * Sq + r) * H + h) * dv;
 #pragma unroll
     for (int G = 0; G < NG; ++G) {
@@ -649,9 +660,9 @@ __device__ __forceinline__ void wgmma_3xtf32(float (&d)[32],
 
 __global__ void __launch_bounds__(kWgThreads) flash_fwd_wgmma(
     const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, float* __restrict__ o, int Sq, int Sk,
-    int H, int KV, int dh, int dv, Geometry geo, int ch_q, int ch_k,
-    int ch_v, float sl2, int causal) {
+    const float* __restrict__ v, float* __restrict__ o,
+    float* __restrict__ lse, int Sq, int Sk, int H, int KV, int dh, int dv,
+    Geometry geo, int ch_q, int ch_k, int ch_v, float sl2, int causal) {
   extern __shared__ __align__(128) unsigned char smem_wg[];
   float* ring = reinterpret_cast<float*>(smem_wg);
   constexpr int stage = kWgBK * 2 * kWgStride;  // raw k then raw v
@@ -803,8 +814,13 @@ __global__ void __launch_bounds__(kWgThreads) flash_fwd_wgmma(
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = qw + g + 8 * r;
-    const float inv = 1.f / fmaxf(quad_sum(l[r]), 1e-30f);
+    const float lr = fmaxf(quad_sum(l[r]), 1e-30f);
+    const float inv = 1.f / lr;
     if (row >= Sq) continue;
+    if (lse != nullptr && t == 0) {  // base-2 m, as in flash_fwd_mma
+      lse[static_cast<int64_t>(blockIdx.x) * Sq + row] =
+          m[r] * kLn2 + logf(lr);
+    }
     float* orow = o + ((static_cast<int64_t>(b) * Sq + row) * H + h) * dv;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -856,8 +872,8 @@ int chunk_bytes(const void* p, int width, int esize) {
 
 template <typename T, bool kQReg, int kDV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int Sq, int Sk, int H, int KV, int dh, int dv,
-                   const Geometry& geo, float scale, int causal,
+                   float* lse, int B, int Sq, int Sk, int H, int KV, int dh,
+                   int dv, const Geometry& geo, float scale, int causal,
                    cudaStream_t stream) {
   auto kernel = flash_fwd_mma<T, kQReg, kDV>;
   if (geo.smem > 48 * 1024) {
@@ -872,16 +888,16 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                   static_cast<unsigned>(geo.grid_y));
   kernel<<<grid, kThreads, geo.smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, H, KV, dh, dv,
-      geo, chunk_bytes(q, dh, es), chunk_bytes(k, dh, es),
+      static_cast<const T*>(v), static_cast<T*>(o), lse, Sq, Sk, H, KV, dh,
+      dv, geo, chunk_bytes(q, dh, es), chunk_bytes(k, dh, es),
       chunk_bytes(v, dv, es), vec_o, scale * kLog2e, causal);
   return cudaGetLastError();
 }
 
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
-                         void* o, int B, int Sq, int Sk, int H, int KV,
-                         int dh, int dv, const Geometry& geo, float scale,
-                         int causal, cudaStream_t stream) {
+                         void* o, float* lse, int B, int Sq, int Sk, int H,
+                         int KV, int dh, int dv, const Geometry& geo,
+                         float scale, int causal, cudaStream_t stream) {
   const cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize,
       geo.smem);
@@ -890,50 +906,54 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                   static_cast<unsigned>(geo.grid_y));
   flash_fwd_wgmma<<<grid, kWgThreads, geo.smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), Sq, Sk, H, KV,
-      dh, dv, geo, chunk_bytes(q, dh, 4), chunk_bytes(k, dh, 4),
+      static_cast<const float*>(v), static_cast<float*>(o), lse, Sq, Sk, H,
+      KV, dh, dv, geo, chunk_bytes(q, dh, 4), chunk_bytes(k, dh, 4),
       chunk_bytes(v, dv, 4), scale * kLog2e, causal);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
-                     int B, int Sq, int Sk, int H, int KV, int dh, int dv,
-                     const Geometry& geo, float scale, int causal,
+                     float* lse, int B, int Sq, int Sk, int H, int KV, int dh,
+                     int dv, const Geometry& geo, float scale, int causal,
                      cudaStream_t stream) {
   if constexpr (std::is_same<T, float>::value) {
     if (geo.wgmma) {  // every float32 call with q in registers
-      return launch_wgmma(q, k, v, o, B, Sq, Sk, H, KV, dh, dv, geo, scale,
-                          causal, stream);
+      return launch_wgmma(q, k, v, o, lse, B, Sq, Sk, H, KV, dh, dv, geo,
+                          scale, causal, stream);
     }
   } else if (geo.q_reg) {
-    return launch<T, true, 64>(q, k, v, o, B, Sq, Sk, H, KV, dh, dv, geo,
-                               scale, causal, stream);
+    return launch<T, true, 64>(q, k, v, o, lse, B, Sq, Sk, H, KV, dh, dv,
+                               geo, scale, causal, stream);
   }
   if (geo.dv_class == 64) {
-    return launch<T, false, 64>(q, k, v, o, B, Sq, Sk, H, KV, dh, dv, geo,
-                                scale, causal, stream);
+    return launch<T, false, 64>(q, k, v, o, lse, B, Sq, Sk, H, KV, dh, dv,
+                                geo, scale, causal, stream);
   }
   if (geo.dv_class == 128) {
-    return launch<T, false, 128>(q, k, v, o, B, Sq, Sk, H, KV, dh, dv, geo,
-                                 scale, causal, stream);
+    return launch<T, false, 128>(q, k, v, o, lse, B, Sq, Sk, H, KV, dh, dv,
+                                 geo, scale, causal, stream);
   }
-  return launch<T, false, 256>(q, k, v, o, B, Sq, Sk, H, KV, dh, dv, geo,
-                               scale, causal, stream);
+  return launch<T, false, 256>(q, k, v, o, lse, B, Sq, Sk, H, KV, dh, dv,
+                               geo, scale, causal, stream);
 }
 
 }  // namespace
 
 // q (B, Sq, H, dh), k (B, Sk, KV, dh), v (B, Sk, KV, dv), all contiguous
 // and of one type (bf16 = 0: float32, 1: bfloat16); writes o (B, Sq, H, dv)
-// of that type. H % KV == 0, 1 <= dh, dv <= 256, Sk >= 1. `geo` holds the
-// caller's launch geometry: wgmma, q_reg, block_k, dh_pad, dv_pad,
-// dv_class, k_stride, v_stride, smem bytes, grid x, grid y (launch_geometry
-// in kernel.py); a call whose geometry does not fit (`fits`) is refused.
+// of that type and, where `lse` is not null, each row's float32
+// log-sum-exp of its scaled scores into lse (B, H, Sq) (the residual of
+// the backward pass). H % KV == 0, 1 <= dh, dv <= 256, Sk >= 1. `geo`
+// holds the caller's launch geometry: wgmma, q_reg, block_k, dh_pad,
+// dv_pad, dv_class, k_stride, v_stride, smem bytes, grid x, grid y
+// (launch_geometry in kernel.py); a call whose geometry does not fit
+// (`fits`) is refused.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* o, int B, int Sq,
-                                   int Sk, int H, int KV, int dh, int dv,
-                                   int bf16, float scale, int causal,
+                                   const void* v, void* o, void* lse_out,
+                                   int B, int Sq, int Sk, int H, int KV,
+                                   int dh, int dv, int bf16, float scale,
+                                   int causal,
                                    const int* geo_in, void* stream) {
   if (B > 0 && Sq > 0 && H > 0) {
     const Geometry geo = {geo_in[0], geo_in[1], geo_in[2], geo_in[3],
@@ -944,11 +964,12 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
       return static_cast<int>(cudaErrorInvalidValue);
     }
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    float* lse = static_cast<float*>(lse_out);
     const cudaError_t err =
-        bf16 ? dispatch<__nv_bfloat16>(q, k, v, o, B, Sq, Sk, H, KV, dh, dv,
-                                       geo, scale, causal, s)
-             : dispatch<float>(q, k, v, o, B, Sq, Sk, H, KV, dh, dv, geo,
-                               scale, causal, s);
+        bf16 ? dispatch<__nv_bfloat16>(q, k, v, o, lse, B, Sq, Sk, H, KV,
+                                       dh, dv, geo, scale, causal, s)
+             : dispatch<float>(q, k, v, o, lse, B, Sq, Sk, H, KV, dh, dv,
+                               geo, scale, causal, s);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());

@@ -5,8 +5,13 @@ there: the TPU kernel it replaces, what bounds it, what the design does
 about it). On CUDA tensors the wrapper launches it on the current stream
 and adds one to ``launches``; on CPU tensors it runs the plain version
 from ``ref.py``. There is no fallback: a CUDA tensor never reaches the
-plain version, and a build or launch error raises. The kernel has no
-backward yet, so it refuses inputs that autograd tracks.
+plain version, and a build or launch error raises. With
+``return_lse=True`` it also gives each row's log-sum-exp, the residual of
+the backward pass. The kernel has no backward of its own: where autograd
+tracks an input on the card, the wrapper goes through the attention's
+autograd Function (``repro_torch.models.attention.flash_core``), whose
+forward is this kernel and whose backward is plain PyTorch, as the JAX
+package's ``_flash_core_bwd`` is plain XLA.
 """
 from __future__ import annotations
 
@@ -20,7 +25,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_PROTOS = {"flash_attention_fwd": [_P] * 4 + [_I] * 8
+_PROTOS = {"flash_attention_fwd": [_P] * 5 + [_I] * 8
            + [ctypes.c_float, _I, _P, _P]}
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 256
@@ -100,9 +105,11 @@ def launch_geometry(B: int, Sq: int, H: int, dh: int, dv: int,
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True,
-                        scale: float | None = None):
+                        scale: float | None = None, return_lse: bool = False):
     """Attention forward: q ``(B, Sq, H, dh)``, k ``(B, Sk, KV, dh)``, v
-    ``(B, Sk, KV, dv)``. Returns ``(B, Sq, H, dv)`` in q's dtype.
+    ``(B, Sk, KV, dv)``. Returns ``(B, Sq, H, dv)`` in q's dtype; with
+    ``return_lse`` also the float32 log-sum-exp of each row's scaled
+    scores, ``(B, H, Sq)``.
 
     Head h reads kv head ``h // (H // KV)`` (``KV = 1`` is MQA); causal
     masking is top-left aligned (``pos_q >= pos_k``, both from 0); ``scale``
@@ -131,27 +138,31 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
     scale = dh ** -0.5 if scale is None else float(scale)
     if not _build.on_card(q):
-        return flash_attention_ref(q, k, v, causal=causal, scale=scale)
+        return flash_attention_ref(q, k, v, causal=causal, scale=scale,
+                                   return_lse=return_lse)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        raise NotImplementedError(
-            "K6 has no backward kernel yet (ROADMAP M9: training with "
-            "_flash_core_bwd); call it under torch.no_grad()")
+        from repro_torch.models.attention import flash_core
+        return flash_core(q, k, v, causal=causal, scale=scale,
+                          return_lse=return_lse)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if Sq > GRID_Y_MAX * BLOCK_Q:
         raise ValueError(f"Sq={Sq}: at most {GRID_Y_MAX * BLOCK_Q} queries")
     out = torch.empty((B, Sq, H, dv), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     args = launch_geometry(B, Sq, H, dh, dv, q.dtype).c_args()
     lib = _build.load("flash_attention", _PROTOS)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _build.check(lib, lib.flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Sk,
-        H, KV, dh, dv, int(q.dtype == torch.bfloat16), scale, int(causal),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), B, Sq, Sk, H, KV, dh, dv,
+        int(q.dtype == torch.bfloat16), scale, int(causal),
         (ctypes.c_int * len(args))(*args), stream), "flash_attention_fwd")
     flash_attention_fwd.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention_fwd.launches = 0

@@ -13,9 +13,12 @@ from repro_torch.kernels.flash_attention.ref import (  # noqa: F401
     flash_attention_ref)
 
 
-def flash_attention_op(q, k, v, *, causal=True, scale=None):
+def flash_attention_op(q, k, v, *, causal=True, scale=None,
+                       return_lse=False):
     """``flash_attention_fwd`` (see ``kernel.py``) on contiguous inputs:
-    K6 on the card, the dense plain version on the CPU. ``block_q``,
-    ``block_k`` and ``interpret`` of the JAX op do not exist here."""
+    K6 on the card, the dense plain version on the CPU; ``return_lse``
+    also gives each row's log-sum-exp. ``block_q``, ``block_k`` and
+    ``interpret`` of the JAX op do not exist here."""
     return flash_attention_fwd(q.contiguous(), k.contiguous(),
-                               v.contiguous(), causal=causal, scale=scale)
+                               v.contiguous(), causal=causal, scale=scale,
+                               return_lse=return_lse)

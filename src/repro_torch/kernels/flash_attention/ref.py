@@ -16,11 +16,13 @@ import torch
 NEG_INF = -1e30
 
 
-def flash_attention_ref(q, k, v, *, causal=True, scale=None):
+def flash_attention_ref(q, k, v, *, causal=True, scale=None,
+                        return_lse=False):
     """Attention in float32: q ``(B, Sq, H, dh)``, k ``(B, Sk, KV, dh)``, v
     ``(B, Sk, KV, dv)``; head h reads kv head ``h // (H // KV)``; causal
     masking is top-left aligned (``pos_q >= pos_k``). Returns
-    ``(B, Sq, H, dv)`` in q's dtype."""
+    ``(B, Sq, H, dv)`` in q's dtype; with ``return_lse`` also each row's
+    float32 log-sum-exp of its scaled, masked scores, ``(B, H, Sq)``."""
     B, Sq, H, dh = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -33,7 +35,8 @@ def flash_attention_ref(q, k, v, *, causal=True, scale=None):
              >= torch.arange(Sk, device=q.device)[None, :])
         s = torch.where(m[None, None], s, NEG_INF)
     p = torch.softmax(s, -1)
-    return torch.einsum("bhqk,bkhd->bqhd", p, vv).to(q.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, vv).to(q.dtype)
+    return (out, torch.logsumexp(s, -1)) if return_lse else out
 
 
 def tf32_round(x):

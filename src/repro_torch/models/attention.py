@@ -6,10 +6,16 @@ GQA, online-softmax forward: on the card that is K6
 its ``_flash_fwd_scan``), on the CPU the plain chunked scan
 ``_flash_fwd_scan`` below. MLA's prefill expands the compressed keys and
 values per head and goes through the same forward (qk width nope + rope,
-v width ``v_dim``). Decode scores one query against the whole cache with
-plain tensor ops, as in the JAX package; MLA's decode is the absorbed
-form, scored against the compressed cache ``c_kv`` and the shared rope
-keys directly, never expanding them.
+v width ``v_dim``). Where autograd tracks an input (training), prefill
+goes through ``_FlashCore``, the counterpart of the JAX package's
+``_flash_core`` custom VJP: its forward is K6 on the card (which also
+writes each row's log-sum-exp) or the plain scan on the CPU, and its
+backward is ``_flash_core_bwd`` in plain PyTorch, recomputing the
+probabilities per key chunk from ``(q, k, v, out, lse)``. Decode scores
+one query against the whole cache with plain tensor ops, as in the JAX
+package; MLA's decode is the absorbed form, scored against the
+compressed cache ``c_kv`` and the shared rope keys directly, never
+expanding them.
 
 The caches are updated in place (the JAX package's
 ``dynamic_update_slice`` makes a new buffer): prefill writes the prompt's
@@ -81,6 +87,14 @@ def init_gqa(p: GQA, generator: torch.Generator) -> GQA:
     return p
 
 
+def _causal_penalty(pos_q, start: int, n: int):
+    """The additive causal mask of keys ``[start, start + n)``:
+    ``(1, 1, Sq, n)``, 0 where ``pos_q >= pos_k``, else ``NEG_INF``."""
+    pos_k = start + torch.arange(n, device=pos_q.device)
+    return torch.where(pos_q[:, None] >= pos_k[None, :], 0.0,
+                       NEG_INF)[None, None]
+
+
 def _flash_fwd_scan(q, k, v, causal, scale, chunk):
     """Online-softmax forward over key chunks, the plain version of the
     prefill attention. Returns (out32 ``(B, H, Sq, dv)``, lse ``(B, H, Sq)``).
@@ -102,15 +116,13 @@ def _flash_fwd_scan(q, k, v, causal, scale, chunk):
     acc = torch.zeros((B, H, Sq, dv), dtype=torch.float32, device=dev)
     m = torch.full((B, H, Sq), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((B, H, Sq), dtype=torch.float32, device=dev)
-    for idx in range(Sk // chunk):
-        sl = slice(idx * chunk, (idx + 1) * chunk)
+    for start in range(0, Sk, chunk):      # a shorter last chunk: any Sk
+        sl = slice(start, start + chunk)
         kb = k[:, sl].repeat_interleave(G, 2).to(cdt).float()
         vb = v[:, sl].repeat_interleave(G, 2).to(cdt).float()
         s = torch.einsum("bqhd,bkhd->bhqk", qc, kb) * scale
         if causal:
-            pos_k = idx * chunk + torch.arange(chunk, device=dev)
-            pen = torch.where(pos_q[:, None] >= pos_k[None, :], 0.0, NEG_INF)
-            s = s + pen[None, None]
+            s = s + _causal_penalty(pos_q, start, kb.shape[1])
         m_new = torch.maximum(m, s.amax(-1))
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
@@ -122,19 +134,109 @@ def _flash_fwd_scan(q, k, v, causal, scale, chunk):
     return acc / l[..., None], m + torch.log(l)
 
 
+def _flash_core_bwd(causal, scale, chunk, res, dout):
+    """The JAX ``_flash_core_bwd`` in its operation order: per key chunk,
+    recompute ``p = exp(s - lse)``, accumulate ``dq`` and emit the chunk's
+    ``dk`` and ``dv``, summed over the ``G`` query heads of each kv head.
+    ``res`` is ``(q, k, v, out32 (B, H, Sq, dv), lse (B, H, Sq))``. The
+    products take bfloat16 operands for bfloat16 inputs and accumulate in
+    float32, as the forward's. A shorter last chunk is allowed."""
+    q, k, v, out32, lse = res
+    B, Sq, H, dh = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    G = H // KV
+    cdt = q.dtype if q.dtype == torch.bfloat16 else torch.float32
+    qc = q.to(cdt).float()
+    do32 = dout.float().transpose(1, 2)                   # (B,H,Sq,dv)
+    doc = do32.to(cdt).float()
+    delta = torch.sum(do32 * out32, dim=-1)               # (B,H,Sq)
+    pos_q = torch.arange(Sq, device=q.device)
+    dq = torch.zeros((B, Sq, H, dh), dtype=torch.float32, device=q.device)
+    dks, dvs = [], []
+    for start in range(0, Sk, chunk):
+        sl = slice(start, start + chunk)
+        kbf = k[:, sl].repeat_interleave(G, 2).to(cdt).float()
+        vbf = v[:, sl].repeat_interleave(G, 2).to(cdt).float()
+        n = kbf.shape[1]
+        s = torch.einsum("bqhd,bkhd->bhqk", qc, kbf) * scale
+        if causal:
+            s = s + _causal_penalty(pos_q, start, n)
+        p = torch.exp(s - lse[..., None])                 # (B,H,Sq,C) f32
+        pc = p.to(cdt).float()
+        dv_c = torch.einsum("bhqk,bhqd->bkhd", pc, doc)
+        dp = torch.einsum("bhqd,bkhd->bhqk", doc, vbf)
+        ds = (p * (dp - delta[..., None]) * scale).to(cdt).float()
+        dq = dq + torch.einsum("bhqk,bkhd->bqhd", ds, kbf)
+        dk_c = torch.einsum("bhqk,bqhd->bkhd", ds, qc)
+        dks.append(dk_c.reshape(B, n, KV, G, dh).sum(3))
+        dvs.append(dv_c.reshape(B, n, KV, G, dv).sum(3))
+    return (dq.to(q.dtype), torch.cat(dks, 1).to(k.dtype),
+            torch.cat(dvs, 1).to(v.dtype))
+
+
+class _FlashCore(torch.autograd.Function):
+    """The JAX ``_flash_core`` custom VJP. Forward: K6 on a CUDA tensor
+    (with its log-sum-exp output), the plain scan on a CPU one; returns
+    ``(out (B, Sq, H, dv), lse (B, H, Sq))``, ``lse`` not differentiable.
+    Backward: ``_flash_core_bwd``, plain PyTorch on either device, from
+    the saved ``(q, k, v, out32, lse)``; a bfloat16 ``out`` of K6 enters
+    it as float32 of the rounded values, where the scan keeps its float32
+    accumulator."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float, chunk: int):
+        ctx.on_card = _build.on_card(q)
+        if ctx.on_card:     # K6's output itself is the residual
+            out, lse = flash_attention_op(q, k, v, causal=causal,
+                                          scale=scale, return_lse=True)
+            ctx.save_for_backward(q, k, v, out, lse)
+        else:
+            out32, lse = _flash_fwd_scan(q, k, v, causal, scale, chunk)
+            out = out32.transpose(1, 2).to(q.dtype)
+            ctx.save_for_backward(q, k, v, out32, lse)
+        ctx.args = (causal, scale, chunk)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        out32 = out.float().transpose(1, 2) if ctx.on_card else out
+        dq, dk, dv = _flash_core_bwd(*ctx.args, (q, k, v, out32, lse), dout)
+        return dq, dk, dv, None, None, None
+
+
+def flash_core(q, k, v, *, causal: bool = True, scale: float | None = None,
+               chunk: int = KV_CHUNK, return_lse: bool = False):
+    """Differentiable attention forward (``_FlashCore``): q ``(B, Sq, H,
+    dh)``, k / v ``(B, Sk, KV, ·)``; ``scale`` defaults to ``dh ** -0.5``
+    and ``chunk`` (the backward's key chunk, and the CPU scan's) is cut to
+    ``Sk``. Returns ``(B, Sq, H, dv)``, and with ``return_lse`` also the
+    log-sum-exp ``(B, H, Sq)``."""
+    scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
+    out, lse = _FlashCore.apply(q, k, v, causal, scale,
+                                min(chunk, k.shape[1]))
+    return (out, lse) if return_lse else out
+
+
 def _flash_attend(q, k, v, *, causal: bool, scale: float, chunk: int):
     """Prefill attention. q: (B,Sq,H,dh); k/v: (B,Sk,KV,·) -> (B,Sq,H,dv).
 
-    K6 on a CUDA tensor, the plain scan on a CPU one. ``chunk`` is the
-    scan's key chunk; the JAX package requires ``Sk % min(chunk, Sk) ==
-    0`` and so does the port, on both paths, so the same prompts fail in
-    both.
+    Where autograd tracks an input, ``_FlashCore`` (K6 or the scan
+    forward, the plain backward); otherwise K6 on a CUDA tensor, the plain
+    scan on a CPU one. ``chunk`` is the scan's key chunk; the JAX package
+    requires ``Sk % min(chunk, Sk) == 0`` and so does the port, on every
+    path, so the same prompts fail in both.
     """
     Sk = k.shape[1]
     chunk = min(chunk, Sk)
     if Sk % chunk:
         raise ValueError(f"key length {Sk} is not a multiple of the "
                          f"attention chunk {chunk}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashCore.apply(q, k, v, causal, scale, chunk)[0]
     if _build.on_card(q):
         return flash_attention_op(q, k, v, causal=causal, scale=scale)
     out, _ = _flash_fwd_scan(q, k, v, causal, scale, chunk)

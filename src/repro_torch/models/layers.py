@@ -1,4 +1,5 @@
-"""Shared model building blocks: parameter init, norms, activations, RoPE.
+"""Shared model building blocks: parameter init, norms, activations, RoPE,
+the token cross entropy.
 
 Counterpart of ``repro/models/layers.py``. One card has no mesh, so there
 is no ``Sharder``: the JAX package's sharding constraints are no-ops
@@ -104,3 +105,21 @@ def apply_rope(x, positions, theta: float = 10_000.0):
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s],
                      dim=-1).to(x.dtype)
+
+
+def softmax_cross_entropy(logits, labels, z_loss: float = 0.0):
+    """Token cross entropy with an optional z-loss, reduced in float32:
+    ``lse - label_logit`` (+ ``z_loss * lse ** 2``), shape of ``labels``.
+
+    The reference takes the label logit with a masked sum (a vocab-sharded
+    gather would all-gather the logits on its mesh); that sum adds only
+    zeros besides the label's logit, so the ``gather`` here gives the same
+    value.
+    """
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    loss = lse - ll
+    if z_loss:
+        loss = loss + z_loss * lse ** 2
+    return loss

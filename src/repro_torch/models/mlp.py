@@ -180,12 +180,16 @@ def moe_apply(p: MoE, x, cfg, decode: bool = False):
 
     xt = x.reshape(G, Tg, D)
     logits = p.gate(xt).float()                          # (G, Tg, E)
-    # every group's routing problem at once (the routers are
+    # routing decisions are discrete: the routers see detached scores (the
+    # reference's stop_gradient), so the gate gets its gradient only
+    # through the combine softmax of _dispatch_group, which reads the live
+    # logits. Every group's routing problem at once (the routers are
     # batch-polymorphic over the leading group axis)
+    scores = logits.detach()
     if e.router == "flow" and not decode:
-        routing = auction_route(logits, k, capacity, n_iters=e.router_iters)
+        routing = auction_route(scores, k, capacity, n_iters=e.router_iters)
     else:
-        routing = topk_route(logits, k, capacity)
+        routing = topk_route(scores, k, capacity)
 
     out = torch.stack([
         _dispatch_group(xt[g], routing.dispatch[g], logits[g], p, cfg, k=k,

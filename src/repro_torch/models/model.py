@@ -7,8 +7,9 @@ period of the layer plan and scans over the periods; the port holds one
 JAX package's ``prefix[i]`` for ``i < n_dense_prefix`` and otherwise
 ``body["sub{j}"]`` at period ``r``, ``i = n_dense_prefix + r * period + j``
 (``repro_torch.interop.load_params`` carries weights across that way).
-``remat`` only changes what training saves, never forward values, so the
-port has none.
+``cfg.remat`` changes only what training keeps for the backward pass,
+never a value; the port's trainer (``train/step.py``) leaves it out and
+keeps every activation (ROADMAP §2b).
 
 Runs the dense and token-input families (smollm-135m, chameleon-34b,
 command-r-plus-104b, minitron-8b, nemotron-4-340b), the MoE family

@@ -47,6 +47,9 @@ def test_import_pulls_in_neither_jax_nor_repro():
         "import repro_torch.launch.mesh\n"
         "import repro_torch.obs, repro_torch.serve.metrics\n"
         "import repro_torch.serve.scheduler\n"
+        "import repro_torch.optim.adamw, repro_torch.train.step\n"
+        "import repro_torch.data.pipeline, repro_torch.runtime.ft\n"
+        "import repro_torch.launch.train\n"
         "from repro_torch.core.kinds import get_kind, registered_kinds\n"
         "assert get_kind('matching').name == 'matching'\n"
         "assert registered_kinds() == ('maxflow', 'assignment', 'matching')\n"
@@ -63,7 +66,8 @@ def test_import_pulls_in_neither_jax_nor_repro():
 # the card-only variant scripts run where jax is not installed
 _CARD_SCRIPTS = ["tests/torch_smoke_k4_variants.py",
                  "tests/torch_smoke_k5_variants.py",
-                 "tests/torch_smoke_k6_ablation.py"]
+                 "tests/torch_smoke_k6_ablation.py",
+                 "tests/torch_smoke_train_rows.py"]
 
 
 @pytest.mark.parametrize("path", sorted(

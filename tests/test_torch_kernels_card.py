@@ -10,6 +10,7 @@ sums in another order than its plain version (a dense float32 softmax), so
 it is held to the JAX package's kernel-test bounds: max abs error 3e-5 in
 float32 and 2e-2 in bfloat16.
 """
+import chip_smoke
 import numpy as np
 import pytest
 import torch
@@ -47,6 +48,8 @@ from repro_torch.models.model import apply_model, layer_plan
 from repro_torch.serve.engine import greedy_generate
 
 pytestmark = pytest.mark.torch
+# K6's log-sum-exp: the smoke's sweep and tails (shapes and dtypes)
+FLASH_CASES = chip_smoke.FLASH_SWEEP + chip_smoke.FLASH_TAILS
 
 
 def _stack(probs):
@@ -861,11 +864,100 @@ def test_k6_refuses_a_geometry_that_does_not_fit(
         fak.flash_attention_fwd(q, k, v, causal=True)
 
 
-def test_k6_refuses_autograd(cuda_device):
-    q = torch.zeros(1, 8, 2, 16, device=cuda_device, requires_grad=True)
-    k = torch.zeros(1, 8, 1, 16, device=cuda_device)
-    with pytest.raises(NotImplementedError, match="backward"):
-        fak.flash_attention_fwd(q, k, k)
+@pytest.mark.parametrize("dims,causal,dtype", FLASH_CASES,
+                         ids=[f"{d}-{c}-{str(t)[6:]}" for d, c, t in
+                              FLASH_CASES])
+def test_k6_lse_close_to_plain(cuda_device, dims, causal, dtype):
+    """K6's log-sum-exp output (``return_lse``) against the plain
+    version's, within ``chip_smoke.LSE_TOL``; the output is the call's
+    without it, bit for bit."""
+    rng = np.random.default_rng(11)
+    q, k, v = chip_smoke.flash_inputs(rng, dims, dtype, cuda_device)
+    before = fak.flash_attention_fwd.launches
+    out, lse = fak.flash_attention_fwd(q, k, v, causal=causal,
+                                       return_lse=True)
+    assert fak.flash_attention_fwd.launches == before + 1
+    _, want = flash_attention_ref(q, k, v, causal=causal, return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == want.shape
+    assert (lse - want).abs().max().item() <= chip_smoke.LSE_TOL
+    assert torch.equal(out, fak.flash_attention_fwd(q, k, v, causal=causal))
+
+
+# (B, Sq, Sk, H, KV, dh, dv), causal, dtype: flash_fwd_wgmma (float32, dh
+# and dv <= 64) over several key chunks, flash_fwd_mma (dh above 64; qk
+# 48 / v 32 in bf16; MQA), tails off the tiles
+K6_GRAD = [((2, 256, 256, 9, 3, 64, 64), True, torch.float32),
+           ((1, 100, 100, 4, 2, 72, 72), True, torch.float32),
+           ((1, 64, 96, 4, 1, 48, 32), False, torch.float32),
+           ((1, 128, 128, 6, 2, 48, 32), True, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("dims,causal,dtype", K6_GRAD)
+def test_k6_grads_close_to_cpu(cuda_device, dims, causal, dtype):
+    """Under autograd the kernel wrapper goes through the attention's
+    autograd Function: K6 forward (one launch, with its lse) and the plain
+    backward. dq, dk, dv against the CPU path's (the plain scan forward
+    and the same backward) within 1e-4 (bf16: 2e-2) x their largest
+    |value|: K6's forward is within 3e-5 of the scan's."""
+    from repro_torch.models.attention import flash_core
+    rng = np.random.default_rng(5)
+    B, Sq, Sk, H, KV, dh, dv = dims
+    inputs = [rng.standard_normal(s).astype(np.float32) for s in
+              ((B, Sq, H, dh), (B, Sk, KV, dh), (B, Sk, KV, dv))]
+    dout = rng.standard_normal((B, Sq, H, dv)).astype(np.float32)
+    grads = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        ts = [torch.tensor(x, dtype=dtype, device=dev, requires_grad=True)
+              for x in inputs]
+        before = fak.flash_attention_fwd.launches
+        if dev.type == "cuda":
+            out = fak.flash_attention_fwd(*ts, causal=causal)
+        else:
+            out = flash_core(*ts, causal=causal)
+        out.backward(torch.tensor(dout, dtype=dtype, device=dev))
+        launched = fak.flash_attention_fwd.launches - before
+        assert launched == (1 if dev.type == "cuda" else 0)
+        grads[dev.type] = [t.grad.float().cpu() for t in ts]
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for name, a, b in zip("qkv", grads["cuda"], grads["cpu"]):
+        assert (a - b).abs().max().item() <= tol * b.abs().max().item(), \
+            name
+
+
+def test_train_step_on_card_close_to_cpu(cuda_device):
+    """smollm-135m at smoke size: the loss and every gradient of
+    ``loss_fn`` on the card (K6 forward once per layer, the plain
+    backward) against the CPU path's within 1e-4 x each leaf's largest
+    |g| (float32 both, other summation orders), and one step of
+    ``make_train_step`` launching K6 once per layer."""
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import step as tstep
+    cfg = smoke_variant(get_config("smollm-135m"))
+    params = numpy_params(cfg, seed=0)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=128, global_batch=2)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        model = model_from_params(cfg, params, device=dev)
+        batch = make_batch(dcfg, 0, dev)
+        before = fak.flash_attention_fwd.launches
+        loss, _ = tstep.loss_fn(model, batch)
+        ps = tstep.params_of(model)
+        g = torch.autograd.grad(loss, list(ps.values()))
+        assert fak.flash_attention_fwd.launches - before == (
+            cfg.n_layers if dev.type == "cuda" else 0)
+        out[dev.type] = (float(loss), [x.cpu() for x in g])
+        if dev.type == "cuda":
+            tcfg = tstep.TrainConfig(optimizer=AdamWConfig(warmup_steps=2))
+            state = tstep.init_train_state(cfg, tcfg, model)
+            before = fak.flash_attention_fwd.launches
+            tstep.make_train_step(cfg, tcfg)(state, batch)
+            torch.cuda.synchronize()
+            assert fak.flash_attention_fwd.launches - before == cfg.n_layers
+    (la, ga), (lb, gb) = out["cuda"], out["cpu"]
+    assert abs(la - lb) <= 1e-5 * abs(lb)
+    for a, b in zip(ga, gb):
+        assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
 
 
 def test_serve_on_card_close_to_cpu(cuda_device):
@@ -912,7 +1004,6 @@ def test_jamba_smoke_on_card_close_to_cpu(cuda_device):
     the CPU's top-5 ids within it, and the CPU's token wherever its top-2
     gap is wider. K6 launched once per attention layer in the prefill and
     never in a decode step; no other port kernel."""
-    import chip_smoke
     cfg = smoke_variant(get_config("jamba-v0.1-52b"))
     params = numpy_params(cfg, seed=0)
     prompts = chip_smoke.serve_prompts(cfg.vocab, 2, 128)
@@ -1025,7 +1116,6 @@ def test_mla_stop_rule_on_committed_constants(cuda_device):
     ``phase_mla``'s stops computed from the card's demand and prices are
     those from JAX's; where they stop a request at step 0, the pinned run
     has every decode step's routing to compare."""
-    import chip_smoke
     z = dict(np.load(chip_smoke.MLA_ROUTING))
     cfg = chip_smoke.mla_config(get_config(chip_smoke.MLA_ARCH))
     e = cfg.moe

@@ -1,6 +1,6 @@
 """Constants of the JAX package that ``chip_smoke.py`` holds the port to.
 
-    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_smoke_constants.py [rounds|serve|moe|deepseek|mamba]
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_smoke_constants.py [rounds|serve|moe|deepseek|mamba|train]
 
 ``chip_smoke.py`` runs where JAX is not installed, so what it compares
 with the JAX package is made here, on the CPU, from the same inputs:
@@ -48,7 +48,22 @@ with the JAX package is made here, on the CPU, from the same inputs:
   first ``chip_smoke.SSM_REQUESTS`` requests after the prefill (the
   caches the jitted prefill returns).
 
-With no argument it makes all five.
+* ``train`` (a few minutes on 8 cores; its peak resident memory is
+  printed): the training phase's reference. smollm-135m at full width and
+  depth, ``numpy_params(cfg, chip_smoke.SEED)``, and the
+  ``chip_smoke.TRAIN_STEPS`` batches of ``TRAIN_B`` x ``TRAIN_S`` tokens
+  that the port's ``make_batch`` gives on the card
+  (``chip_smoke.TRAIN_ROWS``, written there by
+  ``tests/torch_smoke_train_rows.py``: numpy's ``Generator.zipf``, which
+  draws the rows of both packages' pipelines, gives other numbers under
+  numpy 2.0.2 than under 2.3.5). JAX's ``make_train_step`` with ``Sharder()`` and
+  the train CLI's optimizer settings gives each step's loss, lr and
+  grad_norm; ``jax.value_and_grad`` of its ``loss_fn`` the step-0
+  gradients, of which ``TRAIN_SAMPLE`` seeded flat indices of each leaf
+  of ``chip_smoke.TRAIN_LEAVES`` (the leaf's largest |g| among them) and
+  that largest |g| go to ``chip_smoke.TRAIN_CONSTANTS``.
+
+With no argument it makes all six.
 """
 import json
 import pathlib
@@ -426,8 +441,66 @@ def mamba() -> None:
           f" GiB", flush=True)
 
 
+def train() -> None:
+    import resource
+
+    from repro.configs.base import get_config
+    from repro.optim.adamw import AdamWConfig
+    from repro.train.step import (TrainConfig, init_train_state, loss_fn,
+                                  make_train_step)
+    t0 = time.perf_counter()
+    cfg = get_config(chip_smoke.TRAIN_ARCH)
+    params, axes = _jax_params(cfg)
+    rows = np.load(chip_smoke.TRAIN_ROWS)
+    batches = [{k: jnp.asarray(rows[k][step]) for k in ("tokens", "labels")}
+               for step in range(chip_smoke.TRAIN_STEPS)]
+    print(f"# {cfg.name}, {cfg.n_layers} layers: weights and batches in "
+          f"{time.perf_counter() - t0:.0f} s", flush=True)
+    shd = Sharder()
+    grad_fn = jax.jit(jax.grad(lambda p, b: loss_fn(p, axes, cfg, shd, b)[0]))
+    g = grad_fn(params, batches[0])
+    rng = np.random.default_rng(chip_smoke.SEED)
+    grads = {}
+    for name, (path, layer) in chip_smoke.TRAIN_LEAVES.items():
+        leaf = g
+        for key in path:
+            leaf = leaf[key]
+        leaf = np.asarray(leaf if layer is None else leaf[layer])
+        flat = np.abs(leaf.reshape(-1))
+        index = np.unique(np.append(rng.choice(
+            flat.size, min(chip_smoke.TRAIN_SAMPLE, flat.size),
+            replace=False), np.argmax(flat)))
+        grads[name] = dict(shape=list(leaf.shape), index=index.tolist(),
+                           value=[float(x) for x in
+                                  leaf.reshape(-1)[index]],
+                           absmax=float(flat.max()))
+    del g
+    print(f"# step-0 gradients ({time.perf_counter() - t0:.0f} s)",
+          flush=True)
+    tcfg = TrainConfig(optimizer=AdamWConfig(
+        lr_peak=chip_smoke.TRAIN_LR, warmup_steps=chip_smoke.TRAIN_WARMUP,
+        decay_steps=chip_smoke.TRAIN_STEPS))
+    state = init_train_state(cfg, tcfg, params)
+    del params
+    step_fn = jax.jit(make_train_step(cfg, axes, tcfg, shd),
+                      donate_argnums=(0,))
+    steps = []
+    for step, batch in enumerate(batches):
+        state, m = step_fn(state, batch)
+        steps.append({k: float(m[k]) for k in ("loss", "lr", "grad_norm")})
+        print(f"# step {step}: {steps[-1]} ({time.perf_counter() - t0:.0f} "
+              f"s)", flush=True)
+    chip_smoke.TRAIN_CONSTANTS.write_text(json.dumps(dict(
+        chip_smoke.train_setup(), steps=steps, grads=grads)) + "\n")
+    print(f"# wrote {chip_smoke.TRAIN_CONSTANTS.relative_to(ROOT)} "
+          f"({time.perf_counter() - t0:.0f} s); peak resident memory "
+          f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.1f}"
+          f" GiB", flush=True)
+
+
 if __name__ == "__main__":
-    which = sys.argv[1:] or ["rounds", "serve", "moe", "deepseek", "mamba"]
+    which = sys.argv[1:] or ["rounds", "serve", "moe", "deepseek", "mamba",
+                             "train"]
     for name in which:
         {"rounds": rounds, "serve": serve, "moe": moe,
-         "deepseek": deepseek, "mamba": mamba}[name]()
+         "deepseek": deepseek, "mamba": mamba, "train": train}[name]()

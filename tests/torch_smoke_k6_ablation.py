@@ -171,8 +171,9 @@ def main() -> int:
             raise AssertionError(f"nvcc failed for {name}:\n{log}")
         lib = ctypes.CDLL(str(path))
         protos = _PROTOS["flash_attention_fwd"]
-        lib.flash_attention_fwd.argtypes = (
-            protos[:-2] + protos[-1:] if name == "parent" else protos)
+        lib.flash_attention_fwd.argtypes = (   # the first design: no lse,
+            protos[:4] + protos[5:-2] + protos[-1:]   # no geometry
+            if name == "parent" else protos)
         libs[name] = lib
         regs = re.findall(r"Used (\d+) registers", log)
         print(f"[ablation] {name}: registers of its kernels {regs}; "
@@ -188,12 +189,13 @@ def main() -> int:
         q, k, v = inputs[dims]
         geo = launch_geometry(B, Sq, H, dh, dv).c_args()
         extra = () if name == "parent" else ((ctypes.c_int * 11)(*geo),)
+        lse = () if name == "parent" else (None,)   # no lse output
 
         def call():
             o = torch.empty((B, Sq, H, dv), device=dev)
             code = libs[name].flash_attention_fwd(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B,
-                Sq, Sk, H, KV, dh, dv, 0, dh ** -0.5, 1, *extra,
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                *lse, B, Sq, Sk, H, KV, dh, dv, 0, dh ** -0.5, 1, *extra,
                 torch.cuda.current_stream().cuda_stream)
             if code != 0:
                 raise AssertionError(f"{name}: CUDA error {code}")
