@@ -161,7 +161,10 @@ Drives ``src/repro_torch`` only (no ``jax``, nothing of ``repro``):
    LOGIT_TOL x the largest |value| of JAX's
    (``tests/torch_smoke_deepseek.npz``); then generations as in phase 12
    against ``tests/torch_smoke_deepseek.json``, with ``moe_stops``'
-   exact rule for tokens whose last-layer routing JAX found unstable;
+   exact rule for tokens whose last-layer routing JAX found unstable; and
+   in each of the port's own generations, the routing decisions that
+   differ from JAX's where JAX's marks call them stable are counted
+   (``unmarked_flips``; MLA_UNMARKED_FLIPS bounds them);
 14. drives the SSM serving path (``phase_ssm``, ROADMAP M9b.3):
    mamba2-370m at full width and depth (48 layers, d_model 1024, d_inner
    2048, 32 heads of 64, d_state 128, d_conv 4, chunk 256, tied
@@ -193,10 +196,38 @@ Drives ``src/repro_torch`` only (no ``jax``, nothing of ``repro``):
    share, the largest device items and their split by kernel name; the
    phase logs the peak device memory. Phase 2 also holds K6's
    log-sum-exp output to its plain version's (LSE_TOL) at every shape
-   and times it at the serve shape.
+   and times it at the serve shape;
+16. drives the encoder (``phase_encoder``, ROADMAP M9b.4): hubert-xlarge
+   at full width and depth (48 layers, d_model 1280, 16 heads of 80,
+   non-causal, no RoPE, sinusoidal positions, LayerNorm, GELU, the
+   512-wide frontend; 945,912,320 parameters) on ``numpy_params``
+   weights, float32 with TF32 off. Its encoder forward (``apply_model``
+   under ``torch.inference_mode``) on ENC_B x ENC_S frames of the port's
+   ``make_batch``: a warm-up and two timed runs, the logits at
+   ``sample_positions`` held to JAX's (``tests/torch_smoke_encoder.npz``)
+   within LOGIT_TOL, K6 launched once per layer, all on
+   ``flash_fwd_mma``; then ENC_STEPS steps of ``make_train_step`` on
+   ENC_TRAIN_B x ENC_S frames held to JAX's loss, lr and grad_norm, the
+   step-0 gradients of ENCODER_LEAVES to JAX's and none reaching
+   ``embed`` (``tests/torch_smoke_encoder.json``), K6 once per layer in
+   each step; every batch's rows must hash as the constants' did. Phase
+   2 holds K6 at the forward's shape (8 x 1024 frames, 16 heads of 80,
+   non-causal) and at the train step's (4 x 1024 frames, with its lse)
+   to its plain version and times it at the forward's against
+   ``F.scaled_dot_product_attention``;
+17. drives the int8 KV cache (``phase_kvq``, ROADMAP M9b.5): smollm-135m
+   with ``kv_quant=True`` on the serve phase's weights and prompts, run
+   as phase 7 runs the float cache: a warm-up and two timed generations
+   held to the JAX package's kv-quant top-5 per step
+   (``tests/torch_smoke_kvq.json``) by ``check_serve``, K6 once per layer
+   in each prefill and never in decode, a profiled prefill and decode
+   step; then after one more prefill the int8 cache of layers KVQ_LAYERS
+   dequantised lies within one code step of the float cache's; the
+   decode step's wall is logged beside the float cache's, with the
+   cache's bytes.
 
 The phases' walls are logged on one ``[walls]`` line at the end
-(``train`` among them).
+(``train``, ``encoder`` and ``kvq`` among them).
 
 Prints one JSON line per kernel summary, the ``nvidia-smi`` name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero
@@ -312,6 +343,38 @@ TRAIN_LEAVES = {
     "layers.29.ffn.w2.weight": (("body", "sub0", "ffn", "w2"), 29),
     "final_norm.g": (("final_norm", "g"), None)}
 TRAIN_SAMPLE = 1024
+# the encoder path: hubert-xlarge at full width and depth (48 layers,
+# d_model 1280, 16 heads of 80, non-causal, the 512-wide frontend; 3.78 GB
+# of float32 weights) on numpy_params weights, float32 with TF32 off. Its
+# forward (``apply_model`` under ``torch.inference_mode``) on ENC_B x
+# ENC_S frames, the embeds of the port's make_batch (DataConfig seed SEED,
+# step 0), then ENC_STEPS steps of make_train_step on ENC_TRAIN_B x ENC_S
+# frames with the train CLI's optimizer settings (TRAIN_LR, TRAIN_WARMUP,
+# decay over the run). The JAX package's logits at sample_positions of
+# every request are in ENCODER_LOGITS; its loss, lr and grad_norm per
+# step, its step-0 gradients of ENCODER_LEAVES at TRAIN_SAMPLE flat
+# indices of each (as TRAIN_LEAVES) and the SHA-256 of each batch's rows
+# (``rows_digest``) in ENCODER_CONSTANTS (`PYTHONPATH=src JAX_PLATFORMS=cpu
+# python tests/torch_smoke_constants.py encoder`)
+ENCODER_ARCH = "hubert-xlarge"
+ENC_B, ENC_S = 8, 1024
+ENC_TRAIN_B, ENC_STEPS = 4, 3
+ENCODER_CONSTANTS = ROOT / "tests" / "torch_smoke_encoder.json"
+ENCODER_LOGITS = ROOT / "tests" / "torch_smoke_encoder.npz"
+ENCODER_LEAVES = {
+    "frontend.weight": (("frontend",), None),
+    "layers.0.mixer.wq.weight": (("body", "sub0", "mixer", "wq"), 0),
+    "layers.47.ffn.w2.weight": (("body", "sub0", "ffn", "w2"), 47),
+    "final_norm.b": (("final_norm", "b"), None),
+    "lm_head.weight": (("lm_head",), None)}
+# the int8 KV cache: smollm-135m with kv_quant on the serve phase's
+# weights, prompts and new tokens; the JAX package's top-5 per step in
+# KVQ_CONSTANTS (`PYTHONPATH=src JAX_PLATFORMS=cpu python
+# tests/torch_smoke_constants.py kvq`); after a prefill the codes of
+# layers KVQ_LAYERS, dequantised, lie within one code step (their scale)
+# of the float cache's keys and values of the same prefill
+KVQ_CONSTANTS = ROOT / "tests" / "torch_smoke_kvq.json"
+KVQ_LAYERS = (0, 29)
 # The training check's tolerances against JAX: float32 on both sides
 # (cuBLAS, K6's split-TF32 forward, the plain attention backward against
 # XLA on the CPU), other summation orders. The loss of each step within
@@ -326,6 +389,11 @@ TRAIN_GRAD_TOL = 1e-3
 # 7.7e-6 of their largest |logit| (after layer 0 and K6; phi's first layer
 # has no such depth), so its marks move the scores by 1e-5 of it
 MLA_PERTURB = 1e-5
+# the routing decisions of the port's own deepseek generations (not
+# pinned) that may differ from JAX's where JAX's marks call them stable
+# (``unmarked_flips``): none of 6,955 prefill and 120 decode decisions
+# did on an H100, so any one fails the phase
+MLA_UNMARKED_FLIPS = 0
 # the router's combine weights (softmaxes in [0, 1]) against JAX's
 COMBINE_TOL = 1e-6
 # Each of the port's logits at JAX's top-5 ids must lie within LOGIT_TOL x
@@ -410,6 +478,8 @@ FP32_OPS_PER_S = 67e12         # H100 SXM non-tensor 32-bit rate (data sheet)
 TF32_OPS_PER_S = 495e12
 BF16_OPS_PER_S = 989e12
 L2_FLUSH_BYTES = 128 << 20     # written between calls to time K4, K5 L2-cold
+TRACE_PRIMER_OPS = 2000  # device ops ahead of each ``traced`` run
+TRACE_GAP_S = 0.01  # idle card between them and the run
 # K5's shares of labeled rows, timed on their own (half first: the row's
 # main input); a matching solve's sweeps run from 2% to 96%
 K5_SHARES = (0.5, 0.03, 0.95)
@@ -458,30 +528,25 @@ def device_events(averages):
                    and ev.self_device_time_total > 0), reverse=True)
 
 
-def trace_device_events(prof):
-    """``device_events`` read from the raw trace of a ``torch.profiler``
-    run made without ``acc_events``: the same rows, without the Python
-    event tree the profiler builds for ``key_averages()``, which takes
-    tens of seconds for a solve of 100,000 device ops."""
-    from torch.autograd import DeviceType
+def trace_device_events(events):
+    """``device_events`` of ``traced`` device events (``torch.profiler``'s
+    raw trace, made without ``acc_events``): the same rows, without the
+    Python event tree the profiler builds for ``key_averages()``, which
+    takes tens of seconds for a solve of 100,000 device ops."""
     acc = {}
-    for ev in prof.profiler.kineto_results.events():
-        if ev.device_type() == DeviceType.CUDA and ev.duration_ns() > 0:
-            us, n = acc.get(ev.name(), (0.0, 0))
-            acc[ev.name()] = (us + ev.duration_ns() / 1e3, n + 1)
+    for ev in events:
+        us, n = acc.get(ev.name(), (0.0, 0))
+        acc[ev.name()] = (us + ev.duration_ns() / 1e3, n + 1)
     return sorted(((us, n, key) for key, (us, n) in acc.items()),
                   reverse=True)
 
 
-def device_union_s(prof) -> float:
-    """Seconds in which at least one device event of a ``torch.profiler``
-    run was running: the union of their intervals. Below the summed busy
-    time exactly when events on several streams overlapped."""
-    from torch.autograd import DeviceType
-    return union_seconds(
-        (ev.start_ns() / 1e9, ev.end_ns() / 1e9)
-        for ev in prof.profiler.kineto_results.events()
-        if ev.device_type() == DeviceType.CUDA and ev.duration_ns() > 0)
+def device_union_s(events) -> float:
+    """Seconds in which at least one of ``traced``'s device events was
+    running: the union of their intervals. Below the summed busy time
+    exactly when events on several streams overlapped."""
+    return union_seconds((ev.start_ns() / 1e9, ev.end_ns() / 1e9)
+                         for ev in events)
 
 
 class Timing(NamedTuple):
@@ -489,6 +554,36 @@ class Timing(NamedTuple):
     ms: float        # device ms per call
     loop_ms: float | None  # CUDA events around the loop, per call
     source: str      # where ``ms`` came from: "profiler", "loop", "events"
+
+
+def traced(run):
+    """``run()`` in a ``torch.profiler`` trace of the device, after
+    TRACE_PRIMER_OPS one-element adds. The first device events of a trace
+    can go unrecorded: in a whole smoke run on an H100, 3 in the first
+    trace, more in each later one, 45 in the last and once 464; before
+    the primer, the first of them were the run's own (once a K6 launch
+    of hubert's forward). The primer takes that loss. The device events
+    that start after the host's clock read between the primer and the
+    run (TRACE_GAP_S of idle card on either side) are the run's. Returns
+    how many primer ops the trace recorded, the run's device events and
+    what it returned."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        primer = torch.empty(1, device="cuda")
+        for _ in range(TRACE_PRIMER_OPS):
+            primer.add_(1)
+        torch.cuda.synchronize()
+        time.sleep(TRACE_GAP_S)
+        t_split = time.time_ns()
+        time.sleep(TRACE_GAP_S)
+        out = run()
+    events = [ev for ev in prof.profiler.kineto_results.events()
+              if ev.device_type() == DeviceType.CUDA
+              and ev.duration_ns() > 0]
+    kept = [ev for ev in events if ev.start_ns() >= t_split]
+    return len(events) - len(kept), kept, out
 
 
 def profiled_ms(run, reps: int, symbol: str | None = None,
@@ -1001,11 +1096,13 @@ def flash_bounds(dims, causal: bool, dtype) -> dict:
 
 
 def kernels_flash(dev) -> dict:
-    """K6 against its plain version over FLASH_SWEEP, FLASH_TAILS and at
-    the serve path's prefill shape in float32 and bfloat16 (max abs error
-    within FLASH_TOL), with timings and ``F.scaled_dot_product_attention``
-    (causal, GQA, on the head-major views) as its one-call yardstick, timed
-    only."""
+    """K6 against its plain version over FLASH_SWEEP, FLASH_TAILS, at the
+    serve path's prefill shape in float32 and bfloat16, at phi's and
+    deepseek's prefill shapes and at hubert's forward and train step
+    shapes (non-causal; the train step's backward reads the lse), output
+    within FLASH_TOL and lse within LSE_TOL, with timings and
+    ``F.scaled_dot_product_attention`` (causal, GQA, on the head-major
+    views) as its one-call yardstick, timed only."""
     import torch.nn.functional as F
 
     from repro_torch.configs.base import get_config
@@ -1022,8 +1119,14 @@ def kernels_flash(dev) -> dict:
     dcfg = get_config(MLA_ARCH)
     mla = (SERVE_B, SERVE_S, SERVE_S, dcfg.n_heads, dcfg.n_kv_heads,
            dcfg.mla.qk_nope_dim + dcfg.mla.qk_rope_dim, dcfg.mla.v_dim)
+    hubert = encoder_attention_shape(ENC_B)
+    routed = {moe: True, mla: True, hubert: False}
     cases = FLASH_SWEEP + FLASH_TAILS + [(moe, True, torch.float32),
                                          (mla, True, torch.float32),
+                                         (hubert, False, torch.float32),
+                                         (encoder_attention_shape(
+                                             ENC_TRAIN_B), False,
+                                          torch.float32),
                                          (serve, True, torch.bfloat16),
                                          (serve, True, torch.float32)]
     sweep, shapes = [], {}
@@ -1054,8 +1157,9 @@ def kernels_flash(dev) -> dict:
         log(f"[kernels] K6 {dims} causal={causal} {dtype}: max abs err "
             f"{err:.3g} (tolerance {FLASH_TOL[dtype]}); lse {lse_err:.3g} "
             f"(tolerance {LSE_TOL}), output unchanged by it")
-        if dims in (moe, mla):
-            shapes[dims] = kernels_flash_at(dims, q, k, v, want, err)
+        if dims in routed:
+            shapes[dims] = kernels_flash_at(dims, routed[dims], q, k, v,
+                                            want, err)
             del q, k, v, want
             continue
         if dims == serve and dtype == torch.bfloat16:
@@ -1094,15 +1198,26 @@ def kernels_flash(dev) -> dict:
         f"{row['lse_ms']:.4f} ms, without {row['ms']:.4f} ms")
     row["library_ms"] = took(row, "library_ms", time_ms(library))
     row["moe_shape"], row["mla_shape"] = shapes[moe], shapes[mla]
+    row["hubert_shape"] = shapes[hubert]
     return {"flash_attention_fwd": row}
 
 
-def kernels_flash_at(dims, q, k, v, want, err) -> dict:
+def encoder_attention_shape(batch: int) -> tuple:
+    """K6's ``(B, Sq, Sk, H, KV, dh, dv)`` in hubert-xlarge at ``batch`` x
+    ENC_S frames (non-causal, MHA)."""
+    from repro_torch.configs.base import get_config
+    cfg = get_config(ENCODER_ARCH)
+    return (batch, ENC_S, ENC_S, cfg.n_heads, cfg.n_kv_heads, cfg.dh,
+            cfg.dh)
+
+
+def kernels_flash_at(dims, causal: bool, q, k, v, want, err) -> dict:
     """K6 at a routed serve path's prefill shape, float32, causal
     (phi3.5-moe: 32 heads over 8 kv heads of 128; deepseek-v2's MLA: 128
-    heads, qk 192, v 128, scale 192 ** -0.5), already held to its plain
-    version in ``kernels_flash``: its launch geometry, device ms, the
-    plain version's and ``F.scaled_dot_product_attention``'s, and its
+    heads, qk 192, v 128, scale 192 ** -0.5), or at the encoder's forward
+    shape, non-causal (hubert-xlarge: 16 heads of 80), already held to its
+    plain version in ``kernels_flash``: its launch geometry, device ms,
+    the plain version's and ``F.scaled_dot_product_attention``'s, and its
     bound."""
     import torch.nn.functional as F
 
@@ -1110,20 +1225,21 @@ def kernels_flash_at(dims, q, k, v, want, err) -> dict:
         flash_attention_fwd, launch_geometry)
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     geo = launch_geometry(dims[0], dims[1], dims[3], dims[5], dims[6])
-    b = flash_bounds(dims, True, torch.float32)
+    b = flash_bounds(dims, causal, torch.float32)
     qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
 
     def library():
-        return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+        return F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal,
                                               enable_gqa=True)
     lib_err = (library().transpose(1, 2) - want).abs().max().item()
-    row = dict(dims=list(dims), max_abs_err=err, bound_ms=b["bound_ms"],
-               bound_by=b["bound_by"], causal_pairs=b["causal_pairs"],
-               **timings(lambda: flash_attention_fwd(q, k, v, causal=True),
-                         lambda: flash_attention_ref(q, k, v, causal=True),
+    row = dict(dims=list(dims), causal=causal, max_abs_err=err,
+               bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+               causal_pairs=b["causal_pairs"],
+               **timings(lambda: flash_attention_fwd(q, k, v, causal=causal),
+                         lambda: flash_attention_ref(q, k, v, causal=causal),
                          "flash_fwd_"))
     row["library_ms"] = took(row, "library_ms", time_ms(library))
-    log(f"[kernels] K6 at the prefill shape {dims}: launch {geo}; "
+    log(f"[kernels] K6 at the shape {dims} causal={causal}: launch {geo}; "
         f"device {row['ms']:.4f} ms (plain {row['plain_ms']:.4f} ms, "
         f"scaled_dot_product_attention {row['library_ms']:.4f} ms, max abs "
         f"diff {lib_err:.3g} from the plain version), bound "
@@ -1201,30 +1317,28 @@ def solve(fn, *a, **kw):
 
 def profile(what: str, wall: float, fn, *a, top: int = 8,
             split: bool = False, **kw) -> dict:
-    """One more run of ``fn`` under ``torch.profiler``, tracing the device
-    alone: device busy time (the sum of every device op's own time), the
-    ops that take most of it, the port's own kernels (their time inside
-    the solve) and the gathers' and scatters' (``GATHER_SCATTER_KERNELS``),
-    summed from the raw trace (``trace_device_events``). The idle share
-    divides busy by ``wall``, the unprofiled solve's time, since the
-    profiler slows the host. Outside the counted runs. Returns the busy
-    seconds, the idle
-    share, the number of device ops (kernels, copies, memsets),
+    """One more run of ``fn`` under ``torch.profiler`` (``traced``, after
+    its primer), tracing the device alone: device busy time (the sum of
+    every device op's own time), the ops that take most of it, the port's
+    own kernels (their time inside the solve) and the gathers' and
+    scatters' (``GATHER_SCATTER_KERNELS``), summed from the raw trace
+    (``trace_device_events``). The idle share divides busy by ``wall``,
+    the unprofiled solve's time, since the profiler slows the host.
+    Outside the counted runs. Returns the busy seconds, the idle share,
+    the number of device ops (kernels, copies, memsets),
     ``{kernel: (ms, launches)}`` of the port's kernels and the gathers'
     and scatters' ms."""
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as torch_profile
-    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _, secs = solve(fn, *a, **kw)
-    rows = trace_device_events(prof)
+    primed, events, (_, secs) = traced(lambda: solve(fn, *a, **kw))
+    rows = trace_device_events(events)
     busy = sum(r[0] for r in rows) / 1e6
-    union = device_union_s(prof)
+    union = device_union_s(events)
     launches = sum(r[1] for r in rows)
     gather_ms = sum(r[0] for r in rows
                     if any(k in r[2] for k in GATHER_SCATTER_KERNELS)) / 1e3
     log(f"[profile] {what}: wall {wall:.4f} s unprofiled ({secs:.4f} s "
         f"profiled), device busy {busy:.4f} s, idle share "
-        f"{1 - busy / wall:.3f}, {launches} device ops")
+        f"{1 - busy / wall:.3f}, {launches} device ops ({primed} of "
+        f"the {TRACE_PRIMER_OPS} primer ops before it recorded)")
     for us, count, key in rows[:top]:
         log(f"[profile]   {us / 1e3:9.3f} ms  {count:6d} x  {key[:90]}")
     port = {}
@@ -2539,33 +2653,36 @@ def check_serve(steps, want: list, tol: float = LOGIT_TOL,
                 worst_err_over_tol=float(worst))
 
 
-def phase_serve(dev, counts: dict) -> dict:
-    """smollm-135m at full width on ``numpy_params`` weights: a warm-up
-    and two timed generations of SERVE_B x SERVE_S prompts and SERVE_NEW
-    tokens, each held to the JAX package's constants, K6 launched once
-    per layer in each prefill and never in decode; then one profiled
-    prefill and one profiled decode step."""
-    from repro_torch.configs.base import get_config
+def serve_generations(tag: str, dev, counts: dict, cfg,
+                      constants: pathlib.Path, setup: dict) -> dict:
+    """``cfg`` (smollm-135m at full width, with or without ``kv_quant``)
+    on ``numpy_params`` weights: a warm-up and two timed generations of
+    SERVE_B x SERVE_S prompts and SERVE_NEW tokens, each held to the JAX
+    package's top-5 per step in ``constants`` (made for ``setup``), K6
+    launched once per layer in each prefill and never in decode; then one
+    profiled prefill (every K6 launch on ``flash_fwd_wgmma``) and one
+    profiled decode step. The launch counts go to ``counts`` as
+    ``{tag}_prefill`` and ``{tag}_decode``. Returns the walls, the
+    profiles, the mean decode step wall (``t_step``), the model, the
+    prompts and the last generation's state."""
     from repro_torch.interop import model_from_params, numpy_params
     from repro_torch.models.model import init_caches
     from repro_torch.serve.engine import make_prefill_step, make_serve_step
     if torch.backends.cuda.matmul.allow_tf32:
-        raise AssertionError("TF32 matmuls are on; the serve check assumes "
-                             "full float32")
-    want = json.loads(SERVE_CONSTANTS.read_text())
-    setup = dict(arch=SERVE_ARCH, B=SERVE_B, S=SERVE_S, max_new=SERVE_NEW,
-                 seed=SEED)
+        raise AssertionError(f"TF32 matmuls are on; the {tag} check assumes "
+                             f"full float32")
+    want = json.loads(constants.read_text())
     if {k: want[k] for k in setup} != setup:
-        raise AssertionError(f"{SERVE_CONSTANTS.name} was made for "
+        raise AssertionError(f"{constants.name} was made for "
                              f"{ {k: want[k] for k in setup} }, not {setup}")
-    cfg = get_config(SERVE_ARCH)
     t0 = time.perf_counter()
     model = model_from_params(cfg, numpy_params(cfg, SEED), device=dev)
     prompts = torch.tensor(serve_prompts(cfg.vocab, SERVE_B, SERVE_S),
                            device=dev)
-    log(f"[serve] {SERVE_ARCH}: {cfg.n_layers} layers, d_model "
-        f"{cfg.d_model}, {sum(p.numel() for p in model.parameters())} "
-        f"parameters on the card in {time.perf_counter() - t0:.1f} s")
+    log(f"[{tag}] {cfg.name} (kv_quant {cfg.kv_quant}): {cfg.n_layers} "
+        f"layers, d_model {cfg.d_model}, "
+        f"{sum(p.numel() for p in model.parameters())} parameters on the "
+        f"card in {time.perf_counter() - t0:.1f} s")
     S_max = SERVE_S + SERVE_NEW
     walls = []
     for run in ("warm-up", "run 1", "run 2"):
@@ -2573,16 +2690,16 @@ def phase_serve(dev, counts: dict) -> dict:
             model, prompts, SERVE_NEW, S_max)
         got = check_serve(steps, want["steps"])
         if c_pre["flash_attention_fwd"] != cfg.n_layers:
-            raise AssertionError(f"serve prefill: K6 launched "
+            raise AssertionError(f"{tag} prefill: K6 launched "
                                  f"{c_pre['flash_attention_fwd']} times, not "
                                  f"once per layer ({cfg.n_layers})")
         require_not_launched(c_pre, [n for n in c_pre
                                      if n != "flash_attention_fwd"],
-                             "serve prefill")
+                             f"{tag} prefill")
         for c in c_steps:
-            require_not_launched(c, list(c), "serve decode step")
+            require_not_launched(c, list(c), f"{tag} decode step")
         tokens = np.stack([t for t, _ in steps], 1)
-        log(f"[serve] {run}: prefill {t_pre * 1e3:.2f} ms "
+        log(f"[{tag}] {run}: prefill {t_pre * 1e3:.2f} ms "
             f"({SERVE_B * SERVE_S / t_pre:.0f} tok/s), decode "
             f"{np.mean(t_steps) * 1e3:.3f} ms per token step "
             f"({SERVE_B / np.mean(t_steps):.0f} tok/s), launches per "
@@ -2590,22 +2707,30 @@ def phase_serve(dev, counts: dict) -> dict:
             f"request 0 tokens {tokens[0].tolist()}")
         if run != "warm-up":
             walls.append((t_pre, float(np.mean(t_steps))))
-            counts.setdefault("serve_prefill", c_pre)
-            counts.setdefault("serve_decode", {
+            counts.setdefault(f"{tag}_prefill", c_pre)
+            counts.setdefault(f"{tag}_decode", {
                 n: sum(c[n] for c in c_steps) for n in c_pre})
     t_pre = sum(w[0] for w in walls) / len(walls)
     t_step = sum(w[1] for w in walls) / len(walls)
     caches = init_caches(cfg, SERVE_B, S_max, dtype=torch.float32,
                          device=dev)
-    pre = profile("serve prefill 8 x 1024", t_pre, make_prefill_step(model),
-                  prompts, caches)
-    # every K6 launch of the prefill on the wgmma kernel
-    k6 = {name: n for name, (_, n) in pre["port_kernels"].items()}
-    if k6 != {"flash_fwd_wgmma": cfg.n_layers}:
-        raise AssertionError(f"serve prefill: port kernels {k6}, not "
-                             f"{cfg.n_layers} launches of flash_fwd_wgmma")
-    dec = profile("serve decode step", t_step, make_serve_step(model), state)
-    return dict(walls=walls, prefill=pre, decode=dec)
+    pre = profile_k6(f"{tag} prefill 8 x 1024", t_pre, "flash_fwd_wgmma",
+                     cfg.n_layers, make_prefill_step(model), prompts, caches,
+                     top=16, split=True)
+    dec = profile(f"{tag} decode step", t_step, make_serve_step(model),
+                  state, top=16, split=True)
+    return dict(walls=walls, prefill=pre, decode=dec, t_step=t_step,
+                model=model, prompts=prompts, state=state)
+
+
+def phase_serve(dev, counts: dict) -> dict:
+    """smollm-135m at full width and depth with the float cache
+    (``serve_generations``)."""
+    from repro_torch.configs.base import get_config
+    return serve_generations(
+        "serve", dev, counts, get_config(SERVE_ARCH), SERVE_CONSTANTS,
+        dict(arch=SERVE_ARCH, B=SERVE_B, S=SERVE_S, max_new=SERVE_NEW,
+             seed=SEED))
 
 
 @contextlib.contextmanager
@@ -2817,6 +2942,44 @@ def check_moe_dispatch(seen: list, want, compared: list, n_layers: int):
     return rows
 
 
+def unmarked_flips(seen: list, want, port_tokens: np.ndarray,
+                   jax_tokens: np.ndarray) -> dict:
+    """The routing decisions of the port's own generation (``seen``, as
+    ``record_routing`` gives it) that differ from the JAX package's where
+    JAX's marks call them stable: per MoE layer of the prefill, the token
+    rows not marked in ``prefill_token_unstable``; per decode step, MoE
+    layer and request not marked in ``decode_unstable``, while the
+    request's tokens fed so far are JAX's (the step's inputs are then
+    JAX's up to rounding). Returns how many differ and how many were
+    compared, prefill and decode, and the first (layer, token) and (step,
+    layer, request) that differ."""
+    n = len(want["prefill_scores"])
+    out = dict(prefill=0, prefill_rows=0, decode=0, decode_rows=0,
+               prefill_at=[], decode_at=[])
+    for layer in range(n):
+        ref = want["prefill_dispatch"][layer]
+        keep = ~np.asarray(want["prefill_token_unstable"][layer],
+                           bool).reshape(ref.shape[:-1])
+        moved = (seen[layer][2].cpu().numpy() != ref).any(-1) & keep
+        out["prefill"] += int(moved.sum())
+        out["prefill_rows"] += int(keep.sum())
+        out["prefill_at"] += [(layer, int(t)) for t in
+                              np.flatnonzero(moved)[:8]]
+    for i, (_, _, d) in enumerate(seen[n:]):
+        t, layer = divmod(i, n)     # decode call t feeds token t
+        d = d.cpu().numpy()
+        for b in range(port_tokens.shape[0]):
+            if (want["decode_unstable"][t, layer, b] or not np.array_equal(
+                    port_tokens[b, :t + 1], jax_tokens[b, :t + 1])):
+                continue
+            out["decode_rows"] += 1
+            ref = want["decode_dispatch"][t, layer, ..., b, :]
+            if not np.array_equal(d[..., b, :], ref):
+                out["decode"] += 1
+                out["decode_at"].append((t + 1, layer, b))
+    return out
+
+
 def device_split(rows) -> dict:
     """Device ms of a profile's rows by kernel name: K6 (``flash_fwd_``),
     matrix products (``gemm``), sorts and top-k (the routers' and the
@@ -2852,7 +3015,7 @@ def routed_serve(tag: str, dev, counts: dict, model, want: dict, routing,
                            device=dev)
     stops, why = moe_stops(routing)
     S_max = SERVE_S + SERVE_NEW
-    walls = []
+    walls, own = [], []
     for run in ("warm-up", "run 1", "run 2"):
         with record_routing() as seen:
             steps, t_pre, t_steps, c_pre, c_steps, state = port_serve(
@@ -2860,6 +3023,10 @@ def routed_serve(tag: str, dev, counts: dict, model, want: dict, routing,
         got = check_serve(steps, want["steps"], stop=stops)
         rows = check_moe_dispatch(seen, routing, got["steps_compared"],
                                   len(routing["prefill_scores"]))
+        tokens = np.stack([t for t, _ in steps], 1)
+        flips = (unmarked_flips(seen, routing, tokens,
+                                np.asarray(want["tokens"]))
+                 if "prefill_token_unstable" in routing else None)
         if c_pre["flash_attention_fwd"] != cfg.n_layers:
             raise AssertionError(f"{tag} prefill: K6 launched "
                                  f"{c_pre['flash_attention_fwd']} times, not "
@@ -2869,13 +3036,14 @@ def routed_serve(tag: str, dev, counts: dict, model, want: dict, routing,
                              f"{tag} prefill")
         for c in c_steps:
             require_not_launched(c, list(c), f"{tag} decode step")
-        tokens = np.stack([t for t, _ in steps], 1)
         log(f"[{tag}] {run}: prefill {t_pre * 1e3:.2f} ms "
             f"({SERVE_B * SERVE_S / t_pre:.0f} tok/s), decode "
             f"{np.mean(t_steps) * 1e3:.3f} ms per token step "
             f"({SERVE_B / np.mean(t_steps):.0f} tok/s); JAX check {got}, "
             f"stopped where {why}; {rows} routed token rows held to JAX's "
-            f"dispatch; request 0 tokens {tokens[0].tolist()}")
+            f"dispatch; the port's own routing off JAX's at decisions JAX "
+            f"marked stable: {flips}; request 0 tokens {tokens[0].tolist()}")
+        own.append(flips)
         if run != "warm-up":
             walls.append((t_pre, float(np.mean(t_steps))))
             counts.setdefault(f"{tag}_prefill", c_pre)
@@ -2888,19 +3056,15 @@ def routed_serve(tag: str, dev, counts: dict, model, want: dict, routing,
     t_step = sum(w[1] for w in walls) / len(walls)
     caches = init_caches(cfg, SERVE_B, S_max, dtype=torch.float32,
                          device=dev)
-    pre = profile(f"{tag} prefill 8 x 1024", t_pre,
-                  make_prefill_step(model), prompts, caches, top=16,
-                  split=True)
-    k6 = {name: n for name, (_, n) in pre["port_kernels"].items()}
-    if k6 != {"flash_fwd_mma": cfg.n_layers}:
-        raise AssertionError(f"{tag} prefill: port kernels {k6}, not "
-                             f"{cfg.n_layers} launches of flash_fwd_mma")
+    pre = profile_k6(f"{tag} prefill 8 x 1024", t_pre, "flash_fwd_mma",
+                     cfg.n_layers, make_prefill_step(model), prompts, caches,
+                     top=16, split=True)
     dec = profile(f"{tag} decode step", t_step, make_serve_step(model),
                   state, top=16, split=True)
     log(f"[{tag}] peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; on {card}")
     return dict(walls=walls, prefill=pre, decode=dec, stops=stops, why=why,
-                pinned=pinned)
+                pinned=pinned, own_routing=own)
 
 
 def pinned_serve(tag: str, model, prompts, want: dict, routing) -> dict:
@@ -3007,6 +3171,12 @@ def phase_mla(dev, counts: dict, card: str) -> dict:
         f"positions of each request: hidden state and c_kv / k_rope cache "
         f"rows within LOGIT_TOL of JAX's (error / tolerance {layer0})")
     out = routed_serve("mla", dev, counts, model, want, routing, card)
+    flips = max(f["prefill"] + f["decode"] for f in out["own_routing"])
+    if flips > MLA_UNMARKED_FLIPS:
+        raise AssertionError(f"mla: the port's own routing differs from "
+                             f"JAX's at {flips} decisions JAX marked stable "
+                             f"(allowed {MLA_UNMARKED_FLIPS}): "
+                             f"{out['own_routing']}")
     return dict(out, routers=routers, n_params=n_params, layer0=layer0)
 
 
@@ -3091,6 +3261,44 @@ def train_setup() -> dict:
                 seed=SEED, lr=TRAIN_LR, warmup=TRAIN_WARMUP,
                 leaves=list(TRAIN_LEAVES),
                 rows_numpy=str(np.load(TRAIN_ROWS)["numpy_version"]))
+
+
+def encoder_setup() -> dict:
+    return dict(arch=ENCODER_ARCH, B=ENC_B, S=ENC_S, train_B=ENC_TRAIN_B,
+                n_steps=ENC_STEPS, seed=SEED, lr=TRAIN_LR,
+                warmup=TRAIN_WARMUP, leaves=list(ENCODER_LEAVES),
+                sample=TRAIN_SAMPLE,
+                positions=sample_positions(ENC_S).tolist())
+
+
+def kvq_setup() -> dict:
+    return dict(arch=SERVE_ARCH, kv_quant=True, B=SERVE_B, S=SERVE_S,
+                max_new=SERVE_NEW, seed=SEED)
+
+
+def encoder_data(global_batch: int):
+    """The encoder phase's ``DataConfig`` (either package's ``DataConfig``
+    takes these fields): hubert's vocab, ENC_S frames of its frontend
+    width, seed SEED."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataConfig
+    cfg = get_config(ENCODER_ARCH)
+    return DataConfig(vocab=cfg.vocab, seq_len=ENC_S,
+                      global_batch=global_batch, seed=SEED,
+                      frontend_dim=cfg.frontend_dim)
+
+
+def rows_digest(batch: dict) -> str:
+    """SHA-256 of a frames batch's rows: the bytes of ``embeds`` (float32)
+    then of ``labels`` (int32), numpy arrays or tensors."""
+    import hashlib
+    h = hashlib.sha256()
+    for key in ("embeds", "labels"):
+        x = batch[key]
+        if isinstance(x, torch.Tensor):
+            x = x.cpu().numpy()
+        h.update(np.ascontiguousarray(x).tobytes())
+    return h.hexdigest()
 
 
 def jax_layout(name: str, t: torch.Tensor) -> np.ndarray:
@@ -3257,18 +3465,249 @@ def phase_train(dev, counts: dict, card: str) -> dict:
         f"{t_ckpt:.1f} s")
 
     t_step = sum(walls) / len(walls)
-    prof = profile(f"train step {TRAIN_B} x {TRAIN_S}", t_step, step_fn,
-                   state, batches[0], top=16, split=True)
-    k6 = {name: n for name, (_, n) in prof["port_kernels"].items()}
-    if k6 != {"flash_fwd_wgmma": cfg.n_layers}:
-        raise AssertionError(f"train step: port kernels {k6}, not "
-                             f"{cfg.n_layers} launches of flash_fwd_wgmma")
+    prof = profile_k6(f"train step {TRAIN_B} x {TRAIN_S}", t_step,
+                      "flash_fwd_wgmma", cfg.n_layers, step_fn, state,
+                      batches[0], top=16, split=True)
     peak = torch.cuda.max_memory_allocated()
     log(f"[train] mean of the timed steps {t_step * 1e3:.2f} ms "
         f"({TRAIN_B * TRAIN_S / t_step:.0f} tok/s); peak device memory "
         f"{peak / 2**30:.2f} GiB; on {card}")
     return dict(walls=walls, profile=prof, peak_bytes=peak,
                 grad_check=grad_check, checks=checks, n_params=n_params)
+
+
+def check_encoder_rows(batches: dict, want: dict):
+    """The frames and labels the port's ``make_batch`` gave here (``{"forward":
+    batch, "train": [batch per step]}``) against the SHA-256 of the rows the
+    JAX constants were made on."""
+    got = {"forward": rows_digest(batches["forward"]),
+           "train": [rows_digest(b) for b in batches["train"]]}
+    if got != want["rows"]:
+        raise AssertionError(
+            f"make_batch's frames or labels differ from the rows the JAX "
+            f"constants were made on (numpy {want['numpy_version']} there, "
+            f"{np.__version__} here): remake {ENCODER_CONSTANTS.name} with "
+            f"tests/torch_smoke_constants.py encoder on rows that match")
+
+
+def phase_encoder(dev, counts: dict, card: str) -> dict:
+    """hubert-xlarge at full width and depth on ``numpy_params`` weights.
+    First its encoder forward (``apply_model`` under
+    ``torch.inference_mode``) on ENC_B x ENC_S frames: a warm-up and two
+    timed runs, each one's logits at ``sample_positions`` held to JAX's
+    within LOGIT_TOL x JAX's largest |logit|, K6 launched once per layer
+    (non-causal) and no other port kernel, then one profiled run. Then
+    training from the same weights: the step-0 gradients of
+    ENCODER_LEAVES against JAX's (``embed`` reached by none) and ENC_STEPS
+    steps of ``make_train_step`` on ENC_TRAIN_B x ENC_S frames (the first
+    a warm-up, the others timed), each step's loss, lr and grad_norm held
+    to JAX's, K6 launched once per layer in each step and no other port
+    kernel; one profiled step and the peak device memory. The rows of
+    every batch must be the ones the constants were made on."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.interop import model_from_params, numpy_params
+    from repro_torch.models.model import apply_model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import (TrainConfig, init_train_state,
+                                        loss_fn, make_train_step, params_of)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on; the encoder check assumes "
+                             "full float32")
+    want = json.loads(ENCODER_CONSTANTS.read_text())
+    setup = encoder_setup()
+    if {k: want[k] for k in setup} != setup:
+        raise AssertionError(f"{ENCODER_CONSTANTS.name} was made for "
+                             f"{ {k: want[k] for k in setup} }, not {setup}")
+    logits_want = np.load(ENCODER_LOGITS)["logits"]
+    cfg = get_config(ENCODER_ARCH)
+    t0 = time.perf_counter()
+    params = numpy_params(cfg, SEED)
+    t_numpy = time.perf_counter() - t0
+    model = model_from_params(cfg, params, device=dev)
+    del params
+    n_params = sum(p.numel() for p in model.parameters())
+    fwd = make_batch(encoder_data(ENC_B), 0, dev)
+    batches = [make_batch(encoder_data(ENC_TRAIN_B), step, dev)
+               for step in range(ENC_STEPS)]
+    check_encoder_rows({"forward": fwd, "train": batches}, want)
+    log(f"[encoder] {cfg.name}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.dh}, d_ff {cfg.d_ff}, "
+        f"frontend {cfg.frontend_dim}, vocab {cfg.vocab}, causal "
+        f"{cfg.causal}: {n_params} parameters on the card "
+        f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated) in "
+        f"{time.perf_counter() - t0:.1f} s ({t_numpy:.1f} s of it numpy); "
+        f"every batch's rows are the constants'")
+
+    pos = torch.tensor(sample_positions(ENC_S), device=dev)
+
+    @torch.inference_mode()
+    def forward():
+        return apply_model(model, {"embeds": fwd["embeds"]}).logits
+
+    frames = ENC_B * ENC_S
+    walls = []
+    for run in ("warm-up", "run 1", "run 2"):
+        torch.cuda.synchronize()
+        reset_counts()
+        logits, wall = solve(forward)
+        c = read_counts()
+        if c["flash_attention_fwd"] != cfg.n_layers:
+            raise AssertionError(f"encoder forward: K6 launched "
+                                 f"{c['flash_attention_fwd']} times, not "
+                                 f"once per layer ({cfg.n_layers})")
+        require_not_launched(c, [n for n in c if n != "flash_attention_fwd"],
+                             "encoder forward")
+        got = logits[:, pos].float().cpu().numpy()
+        del logits
+        err = check_rows(got, logits_want, "encoder forward logits",
+                         LOGIT_TOL)
+        log(f"[encoder] forward {run}: {wall * 1e3:.2f} ms "
+            f"({frames / wall:.0f} frames/s); logits at {len(pos)} "
+            f"positions of each request within LOGIT_TOL of JAX's (error "
+            f"/ tolerance {err:.3g}); K6 launches "
+            f"{c['flash_attention_fwd']}")
+        if run != "warm-up":
+            walls.append(wall)
+            counts.setdefault("encoder_forward", c)
+    t_fwd = sum(walls) / len(walls)
+    prof_fwd = profile_k6(f"encoder forward {ENC_B} x {ENC_S}", t_fwd,
+                          "flash_fwd_mma", cfg.n_layers, forward, top=16,
+                          split=True)
+
+    params = params_of(model)
+    loss, _ = loss_fn(model, batches[0])
+    g = torch.autograd.grad(loss, [params[n] for n in ENCODER_LEAVES]
+                            + [params["embed"]], allow_unused=True)
+    del loss
+    if g[-1] is not None:
+        raise AssertionError("encoder: the loss reaches embed, which the "
+                             "frontend replaces (JAX's gradient there is 0)")
+    grad_check = check_train_grads(dict(zip(ENCODER_LEAVES, g)),
+                                   want["grads"])
+    del g
+    log(f"[encoder] step-0 gradients at {TRAIN_SAMPLE} sampled entries of "
+        f"each leaf against JAX's (error / tolerance): {grad_check}; none "
+        f"reaches embed (JAX's is 0)")
+
+    tcfg = TrainConfig(optimizer=AdamWConfig(
+        lr_peak=TRAIN_LR, warmup_steps=TRAIN_WARMUP, decay_steps=ENC_STEPS))
+    state = init_train_state(cfg, tcfg, model)
+    step_fn = make_train_step(cfg, tcfg)
+    frames = ENC_TRAIN_B * ENC_S
+    steps, checks = [], []
+    for step in range(ENC_STEPS):
+        torch.cuda.synchronize()
+        reset_counts()
+        (state, m), wall = solve(step_fn, state, batches[step])
+        c = read_counts()
+        if c["flash_attention_fwd"] != cfg.n_layers:
+            raise AssertionError(f"encoder train step {step}: K6 launched "
+                                 f"{c['flash_attention_fwd']} times, not "
+                                 f"once per layer ({cfg.n_layers})")
+        require_not_launched(c, [n for n in c if n != "flash_attention_fwd"],
+                             f"encoder train step {step}")
+        checks.append(check_train_metrics(step, m, want["steps"][step]))
+        ref = want["steps"][step]
+        log(f"[encoder] train step {step}"
+            f"{' (warm-up)' if step == 0 else ''}: {wall * 1e3:.2f} ms "
+            f"({frames / wall:.0f} frames/s), loss {float(m['loss']):.6f} "
+            f"(JAX {ref['loss']:.6f}), grad_norm "
+            f"{float(m['grad_norm']):.6f} (JAX {ref['grad_norm']:.6f}), lr "
+            f"{float(m['lr']):.4g}; error / tolerance {checks[-1]}; K6 "
+            f"launches {c['flash_attention_fwd']}")
+        if step:
+            steps.append(wall)
+        counts.setdefault("encoder_train_step", c)
+    t_step = sum(steps) / len(steps)
+    prof_step = profile_k6(f"encoder train step {ENC_TRAIN_B} x {ENC_S}",
+                           t_step, "flash_fwd_mma", cfg.n_layers, step_fn,
+                           state, batches[0], top=16, split=True)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[encoder] forward {t_fwd * 1e3:.2f} ms ({ENC_B * ENC_S / t_fwd:.0f}"
+        f" frames/s), train step {t_step * 1e3:.2f} ms "
+        f"({frames / t_step:.0f} frames/s), means of the timed runs; peak "
+        f"device memory {peak / 2**30:.2f} GiB; on {card}")
+    return dict(forward_walls=walls, step_walls=steps, forward=prof_fwd,
+                step=prof_step, peak_bytes=peak, grad_check=grad_check,
+                checks=checks, n_params=n_params)
+
+
+def profile_k6(what: str, wall: float, kernel: str, n: int, fn, *a,
+               **kw) -> dict:
+    """``profile`` of one run of ``fn``, whose profile must hold ``n`` K6
+    launches, every one on ``kernel``, and no other port kernel."""
+    prof = profile(what, wall, fn, *a, **kw)
+    seen = {name: m for name, (_, m) in prof["port_kernels"].items()}
+    if seen != {kernel: n}:
+        raise AssertionError(f"{what}: the profile saw port kernels {seen}, "
+                             f"not {n} launches of {kernel}")
+    return prof
+
+
+def kvq_rows(model, prompts: torch.Tensor, S_max: int) -> dict:
+    """One prefill of ``prompts`` into the int8 cache and one into a float
+    cache: per layer of KVQ_LAYERS, the largest |codes x scale - float|
+    of k and v over the prompt as a share of the row's scale (one code
+    step; rounding gives at most half of it)."""
+    import dataclasses
+
+    from repro_torch.models.model import init_caches
+    from repro_torch.serve.engine import make_prefill_step
+    B, S = prompts.shape
+    prefill = make_prefill_step(model)
+    fcfg = dataclasses.replace(model.cfg, kv_quant=False)
+    _, sq = prefill(prompts, init_caches(model.cfg, B, S_max,
+                                         dtype=torch.float32,
+                                         device=prompts.device))
+    _, sf = prefill(prompts, init_caches(fcfg, B, S_max, dtype=torch.float32,
+                                         device=prompts.device))
+    out = {}
+    for i in KVQ_LAYERS:
+        cq, cf = sq.caches[i], sf.caches[i]
+        for name, q, s, x in (("k", cq.k_q, cq.k_s, cf.k),
+                              ("v", cq.v_q, cq.v_s, cf.v)):
+            q, s, x = q[:, :S], s[:, :S], x[:, :S]
+            err = ((q.float() * s - x).abs() / s.clamp_min(1e-30)).max()
+            out[f"layer {i} {name}"] = float(err)
+            if not float(err) <= 1.0:
+                raise AssertionError(f"kvq layer {i} {name}: dequantised "
+                                     f"cache off the float cache's by "
+                                     f"{float(err):.3g} code steps")
+    return out
+
+
+def phase_kvq(dev, counts: dict, card: str, float_step: float) -> dict:
+    """smollm-135m with ``kv_quant=True`` at full width and depth on the
+    serve phase's ``numpy_params`` weights and prompts: its generations
+    held to the JAX package's kv-quant constants (``serve_generations``);
+    then, after one more prefill, the int8 cache of layers KVQ_LAYERS
+    dequantised within one code step of the float cache of the same
+    prefill (``kvq_rows``); the decode step's wall beside the float
+    cache's (``float_step``, phase_serve's) and the cache's bytes."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    cfg = dataclasses.replace(get_config(SERVE_ARCH), kv_quant=True)
+    out = serve_generations("kvq", dev, counts, cfg, KVQ_CONSTANTS,
+                            kvq_setup())
+    rows = kvq_rows(out["model"], out["prompts"], SERVE_S + SERVE_NEW)
+    log(f"[kvq] after one prefill: the int8 cache of layers {KVQ_LAYERS} "
+        f"dequantised within one code step of the float cache's (largest "
+        f"error in code steps {rows})")
+    caches = out["state"].caches
+    q_bytes = sum(x.numel() * x.element_size() for c in caches
+                  for x in c[:4])
+    f_bytes = 2 * 4 * sum(c.k_q.numel() for c in caches)
+    log(f"[kvq] decode step {out['t_step'] * 1e3:.3f} ms on the int8 cache, "
+        f"{float_step * 1e3:.3f} ms on the float32 cache (phase_serve); "
+        f"cache {q_bytes} bytes (int8 codes and float32 scales) against "
+        f"{f_bytes} in float32 ({q_bytes / f_bytes:.3f}); on {card}")
+    return dict(walls=out["walls"], prefill=out["prefill"],
+                decode=out["decode"], rows=rows, cache_bytes=q_bytes,
+                float_cache_bytes=f_bytes)
 
 
 def timed(walls: dict, name: str, fn, *a, **kw):
@@ -3330,6 +3769,7 @@ def main() -> int:
     k6 = serve["prefill"]["port_kernels"]
     kernels["flash_attention_fwd"]["prefill_ms_per_launch"] = (
         sum(ms for ms, _ in k6.values()) / sum(n for _, n in k6.values()))
+    float_step = serve["t_step"]
     del serve
     moe = timed(walls, "moe", phase_moe, dev, counts, card)
     ms, n = moe["prefill"]["port_kernels"]["flash_fwd_mma"]
@@ -3348,6 +3788,18 @@ def main() -> int:
         launches_per_step=counts["train_step"]["flash_attention_fwd"],
         profiled_ms_per_launch=ms / n)
     del train
+    enc = timed(walls, "encoder", phase_encoder, dev, counts, card)
+    (f_ms, f_n), (s_ms, s_n) = (enc[k]["port_kernels"]["flash_fwd_mma"]
+                                for k in ("forward", "step"))
+    kernels["flash_attention_fwd"]["hubert_shape"].update(
+        launches_per_forward=counts["encoder_forward"]["flash_attention_fwd"],
+        launches_per_train_step=counts["encoder_train_step"][
+            "flash_attention_fwd"],
+        forward_ms_per_launch=f_ms / f_n, train_ms_per_launch=s_ms / s_n,
+        train_bound_ms=flash_bounds(encoder_attention_shape(ENC_TRAIN_B),
+                                    False, torch.float32)["bound_ms"])
+    del enc
+    timed(walls, "kvq", phase_kvq, dev, counts, card, float_step)
     # K1-K3 inside each profiled grid solve, under the wrapper's name
     for name, symbol in (("grid_push_decide", "grid_push_decide_kernel"),
                          ("grid_push_decide_sched",

@@ -3,8 +3,7 @@
 The port's own copy of ``repro/configs/base.py`` (pure data, no JAX), so
 that ``repro_torch`` imports nothing of ``repro``; the config modules
 beside it are copies too, and ``list_configs()`` equals the JAX
-package's. Which families and options the port's model runs is
-``repro_torch.models.model.check_supported``.
+package's. The port's model runs every family and option here.
 """
 from __future__ import annotations
 

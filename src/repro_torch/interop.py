@@ -24,9 +24,10 @@ Model weights cross the same way:
   same weights;
 * ``load_params`` copies such a tree (numpy or JAX leaves) into the
   port's ``Model``, unstacking ``body`` into per-layer blocks and
-  transposing each ``x @ W`` matrix into its ``nn.Linear`` (an MoE's
-  ``gate`` and ``shared`` MLP, MLA's ``wq_a``, ``wq_b``, ``wkv_a`` and
-  ``wo``, mamba's ``in_proj`` and ``out_proj`` too); the 3-D tensors keep
+  transposing each ``x @ W`` matrix into its ``nn.Linear`` (the
+  encoder's ``frontend``, an MoE's ``gate`` and ``shared`` MLP, MLA's
+  ``wq_a``, ``wq_b``, ``wkv_a`` and ``wo``, mamba's ``in_proj`` and
+  ``out_proj`` too); the 3-D tensors keep
   the JAX layout and are copied as they are: the MoE's experts ``w1``,
   ``w2``, ``w3`` and MLA's ``wk_b``, ``wv_b``; so are mamba's ``conv_w``
   ``(d_conv, di + 2 N)`` and its vectors; ``model_from_params`` builds the
@@ -50,8 +51,7 @@ from repro_torch.core.assignment import cost_scaling
 from repro_torch.core.matching import bfs
 from repro_torch.core.maxflow import grid
 from repro_torch.models.layers import dense_std, depth_scaled_std
-from repro_torch.models.model import (Model, check_supported, layer_plan,
-                                      plan_period)
+from repro_torch.models.model import Model, layer_plan, plan_period
 
 _TYPES = {t.__name__: t for t in (
     grid.GridProblem, grid.GridFlowState, grid.GridFlowResult,
@@ -201,8 +201,9 @@ def numpy_params(cfg, seed: int = 0) -> dict:
     """The JAX ``init_model(cfg, ...)[0]`` tree as float32 numpy arrays
     drawn from ``np.random.default_rng(seed)``, with its stds (the
     numbers are numpy's, not ``jax.random``'s). ``body`` leaves carry the
-    leading ``n_periods`` axis. For the configs the port runs."""
-    check_supported(cfg)
+    leading ``n_periods`` axis. ``frontend`` is drawn after every other
+    leaf, so the configs without one get the same numbers as before it
+    was ported."""
     rng = np.random.default_rng(seed)
     plan = layer_plan(cfg)
     period = plan_period(cfg)
@@ -231,6 +232,9 @@ def numpy_params(cfg, seed: int = 0) -> dict:
     if not cfg.tie_embeddings:
         tree["lm_head"] = one[0]((cfg.d_model, cfg.vocab),
                                  dense_std(cfg.d_model))
+    if cfg.frontend_dim:
+        tree["frontend"] = one[0]((cfg.frontend_dim, cfg.d_model),
+                                  dense_std(cfg.frontend_dim))
     return tree
 
 
@@ -308,8 +312,9 @@ def load_params(model: Model, params: dict) -> Model:
                                       _at(params["body"][f"sub{j}"], r)))
     for k, x in params["final_norm"].items():
         sd[f"final_norm.{k}"] = _vector(x)
-    if "lm_head" in params:
-        sd["lm_head.weight"] = _matrix(params["lm_head"])
+    for k in ("lm_head", "frontend"):
+        if k in params:
+            sd[f"{k}.weight"] = _matrix(params[k])
     with torch.no_grad():
         model.load_state_dict(sd, strict=True)
     return model

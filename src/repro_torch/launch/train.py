@@ -16,8 +16,8 @@ in ``launch/serve.py``. The train state (parameters, moments, step) is
 saved and restored through ``checkpoint/store.py``; a resumed run goes on
 with the same data rows and gives the same parameters, bit for bit, as
 one that never stopped (on the CPU; the card's sums may vary run to
-run). The encoder, input frontends and ``kv_quant`` raise
-(``models.model.check_supported``, ROADMAP M9).
+run). An encoder (``--arch hubert-xlarge``) trains on the pipeline's
+``embeds`` rows: frame embeddings of ``frontend_dim`` and their labels.
 """
 from __future__ import annotations
 

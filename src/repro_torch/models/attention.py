@@ -24,8 +24,14 @@ buffers, decode writes one position at ``cache.length`` (clamped into the
 buffer, as ``dynamic_update_slice`` clamps), and the returned ``KVCache``
 shares their storage.
 
-The int8 cache (``KVCacheQ``, ``cfg.kv_quant``) waits for ROADMAP M9;
-``models.model.check_supported`` refuses it.
+With ``cfg.kv_quant`` the GQA cache is ``KVCacheQ``: int8 codes and one
+float32 scale per (request, position, kv head), ``_quant_kv``'s
+symmetric rounding. Prefill quantises the prompt's keys and values into
+it; decode quantises the new row, writes it at ``cache.length`` and
+scores against the whole cache dequantised (``codes * scale``), as the
+JAX package does. Attention runs non-causal (the encoder) wherever
+``cfg.causal`` is False: K6 and the plain scan skip the mask, and so does
+the backward.
 """
 from __future__ import annotations
 
@@ -48,6 +54,29 @@ class KVCache(NamedTuple):
     k: torch.Tensor     # GQA: (B, S_max, KV, dh) | MLA: c_kv (B, S_max, kv_lora)
     v: torch.Tensor     # GQA: (B, S_max, KV, dh) | MLA: k_rope (B, S_max, rope)
     length: torch.Tensor    # filled prefix length (0-d int32)
+
+
+class KVCacheQ(NamedTuple):
+    """The int8 GQA cache: per-vector symmetric scales, one float32 per
+    (b, s, kv head)."""
+    k_q: torch.Tensor       # (B, S_max, KV, dh) int8
+    k_s: torch.Tensor       # (B, S_max, KV, 1) float32
+    v_q: torch.Tensor       # (B, S_max, KV, dh) int8
+    v_s: torch.Tensor       # (B, S_max, KV, 1) float32
+    length: torch.Tensor    # filled prefix length (0-d int32)
+
+
+def _quant_kv(x):
+    """``(codes int8, scales float32)`` of ``x`` over its last axis: ``s =
+    max|x| / 127`` (keepdims) and ``round(x / max(s, 1e-9))``, half to
+    even as ``jnp.round``. Both divisions take a tensor on ``x``'s device,
+    never a host scalar, which the card would turn into a product with
+    its reciprocal (one ulp off a true quotient)."""
+    x32 = x.float()
+    m = x32.abs().amax(-1, keepdim=True)
+    s = m / m.new_full((), 127.0)
+    q = torch.round(x32 / torch.clamp_min(s, 1e-9)).to(torch.int8)
+    return q, s
 
 
 # ---------------------------------------------------------------------------
@@ -243,9 +272,11 @@ def _flash_attend(q, k, v, *, causal: bool, scale: float, chunk: int):
     return out.transpose(1, 2).to(q.dtype)
 
 
-def gqa_apply(p: GQA, x, cfg, *, positions, cache: Optional[KVCache] = None,
-              decode: bool):
-    """Returns (out, new_cache). Prefill: decode=False (cache optional)."""
+def gqa_apply(p: GQA, x, cfg, *, positions,
+              cache: Optional[KVCache | KVCacheQ] = None, decode: bool):
+    """Returns (out, new_cache). Prefill: decode=False (cache optional).
+    A ``KVCacheQ`` cache is written with ``_quant_kv``'s codes and scales
+    and read dequantised."""
     B, S, D = x.shape
     dh, H, KV = cfg.dh, cfg.n_heads, cfg.n_kv_heads
     q = p.wq(x).reshape(B, S, H, dh)
@@ -257,15 +288,23 @@ def gqa_apply(p: GQA, x, cfg, *, positions, cache: Optional[KVCache] = None,
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     scale = dh ** -0.5
+    quant = isinstance(cache, KVCacheQ)
     if decode:
         if cache is None or S != 1:
             raise ValueError("decode takes one token and a cache")
-        T = cache.k.shape[1]
+        T = cache[0].shape[1]
         # dynamic_update_slice clamps the start into the buffer; so does this
         at = cache.length.clamp(max=T - 1).long().reshape(1)
-        kc = cache.k.index_copy_(1, at, k.to(cache.k.dtype))
-        vc = cache.v.index_copy_(1, at, v.to(cache.v.dtype))
-        new_cache = KVCache(kc, vc, cache.length + 1)
+        if quant:
+            for buf, row in zip(cache[:4], (*_quant_kv(k), *_quant_kv(v))):
+                buf.index_copy_(1, at, row)
+            new_cache = KVCacheQ(*cache[:4], cache.length + 1)
+            kc = cache.k_q.float() * cache.k_s
+            vc = cache.v_q.float() * cache.v_s
+        else:
+            kc = cache.k.index_copy_(1, at, k.to(cache.k.dtype))
+            vc = cache.v.index_copy_(1, at, v.to(cache.v.dtype))
+            new_cache = KVCache(kc, vc, cache.length + 1)
         G = H // KV
         # grouped decode score: q reshaped to (B, 1, KV, G, dh)
         qg = q.float().reshape(B, 1, KV, G, dh)
@@ -280,6 +319,11 @@ def gqa_apply(p: GQA, x, cfg, *, positions, cache: Optional[KVCache] = None,
                           chunk=KV_CHUNK).reshape(B, S, H * dh)
         if cache is None:
             new_cache = None
+        elif quant:             # prefill: quantise the whole prefix
+            for buf, rows in zip(cache[:4], (*_quant_kv(k), *_quant_kv(v))):
+                buf[:, :S] = rows
+            new_cache = KVCacheQ(*cache[:4], torch.tensor(
+                S, dtype=torch.int32, device=x.device))
         else:                   # prefill: write into the S_max buffer
             cache.k[:, :S] = k.to(cache.k.dtype)
             cache.v[:, :S] = v.to(cache.v.dtype)

@@ -1,5 +1,5 @@
 """Shared model building blocks: parameter init, norms, activations, RoPE,
-the token cross entropy.
+the encoder's sinusoidal positions, the token cross entropy.
 
 Counterpart of ``repro/models/layers.py``. One card has no mesh, so there
 is no ``Sharder``: the JAX package's sharding constraints are no-ops
@@ -105,6 +105,18 @@ def apply_rope(x, positions, theta: float = 10_000.0):
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s],
                      dim=-1).to(x.dtype)
+
+
+def sinusoidal_pos(positions, d_model: int):
+    """The encoder's positional embedding ``(S, d_model)`` float32, on
+    ``positions``' device: ``[sin(f), cos(f)]`` with ``f = positions *
+    inv`` and ``inv = 1 / 10000 ** (arange(half) / half)``, as the JAX
+    package's (a stub for HuBERT's convolutional positions)."""
+    half = d_model // 2
+    inv = 1.0 / (10_000.0 ** (torch.arange(half, dtype=torch.float32,
+                                           device=positions.device) / half))
+    f = positions.to(torch.float32)[:, None] * inv[None, :]
+    return torch.cat([torch.sin(f), torch.cos(f)], dim=-1)
 
 
 def softmax_cross_entropy(logits, labels, z_loss: float = 0.0):

@@ -1,4 +1,4 @@
-"""LM assembly: layer plan -> blocks -> logits, for every causal family.
+"""LM assembly: layer plan -> blocks -> logits, for every family.
 
 Counterpart of ``repro/models/model.py``. The JAX package stacks each
 period of the layer plan and scans over the periods; the port holds one
@@ -23,9 +23,16 @@ recurrent decode, an ``SSMCache``); otherwise it is attention:
 ``models.attention.MLA`` where ``cfg.attn_type == "mla"`` (its cache holds
 ``c_kv`` and ``k_rope``), else ``GQA``, with RoPE only where
 ``cfg.rope_theta`` is set (jamba has none). The hybrid's plan puts
-attention at every ``attn_period``-th layer and mamba elsewhere. The
-encoder stack, input frontends and the int8 cache wait for ROADMAP M9:
-``check_supported`` raises ``NotImplementedError`` for them.
+attention at every ``attn_period``-th layer and mamba elsewhere.
+
+The encoder (hubert-xlarge: ``causal=False``, a ``frontend_dim``) runs
+the same blocks with non-causal attention: ``frontend`` (a bias-free
+``nn.Linear``) projects ``batch["embeds"]`` in place of the token lookup,
+and where the config is neither causal nor has RoPE the sinusoidal
+positions (``layers.sinusoidal_pos``) are added to it. ``embed`` stays a
+parameter there, as in the JAX tree, and gets a zero gradient. With
+``cfg.kv_quant`` the attention caches are ``KVCacheQ`` (int8 codes and
+float32 scales, ``models.attention``).
 """
 from __future__ import annotations
 
@@ -38,9 +45,10 @@ from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.attention import (GQA, MLA, KVCache, init_gqa,
-                                         init_mla)
-from repro_torch.models.layers import Norm, dense_std, linear, normal_
+from repro_torch.models.attention import (GQA, MLA, KVCache, KVCacheQ,
+                                         init_gqa, init_mla)
+from repro_torch.models.layers import (Norm, dense_std, linear, normal_,
+                                       sinusoidal_pos)
 from repro_torch.models.mamba import Mamba, SSMCache, init_mamba
 from repro_torch.models.mlp import MLP, MoE, init_mlp, init_moe
 
@@ -75,21 +83,6 @@ def plan_period(cfg: ModelConfig) -> int:
         period = math.lcm(period, cfg.moe.every)
     assert (cfg.n_layers - cfg.n_dense_prefix) % period == 0, cfg.name
     return period
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item for a config
-    the port cannot run yet."""
-    missing = []
-    if cfg.family == "encoder" or not cfg.causal:
-        missing.append("the encoder stack")
-    if cfg.frontend_dim:
-        missing.append("input frontends")
-    if cfg.kv_quant:
-        missing.append("the int8 KV cache (kv_quant)")
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP M9)")
 
 
 # ---------------------------------------------------------------------------
@@ -131,17 +124,19 @@ class Block(nn.Module):
 
 
 class Model(nn.Module):
-    """The port's LM: ``embed`` ``(vocab, d_model)``, ``layers`` (one
-    ``Block`` each), ``final_norm`` and, untied, ``lm_head``. Built with
-    uninitialised weights: ``init_model`` draws them,
-    ``repro_torch.interop.load_params`` copies the JAX package's."""
+    """The port's LM: with ``cfg.frontend_dim`` a ``frontend`` projection
+    (``frontend_dim`` -> ``d_model``), ``embed`` ``(vocab, d_model)``,
+    ``layers`` (one ``Block`` each), ``final_norm`` and, untied,
+    ``lm_head``. Built with uninitialised weights: ``init_model`` draws
+    them, ``repro_torch.interop.load_params`` copies the JAX package's."""
 
     def __init__(self, cfg: ModelConfig, *, device=None,
                  dtype=torch.float32):
         super().__init__()
-        check_supported(cfg)
         dev = resolve_device(device)
         self.cfg = cfg
+        if cfg.frontend_dim:
+            self.frontend = linear(cfg.frontend_dim, cfg.d_model, dev, dtype)
         self.embed = nn.Parameter(torch.empty(cfg.vocab, cfg.d_model,
                                               device=dev, dtype=dtype))
         self.layers = nn.ModuleList(
@@ -159,11 +154,14 @@ def init_model(cfg: ModelConfig, generator: torch.Generator, *, device=None,
     """A model with random weights drawn from ``generator``: the JAX
     ``init_model``'s standard deviations (``fan_in ** -0.5``; the embedding
     ``d_model ** -0.5``; ``wo`` and ``w2`` depth-scaled; norm gains 1 and
-    biases 0; MLA's, mamba's and the MoE's as ``init_mla``, ``init_mamba``
-    and ``init_moe`` say).
+    biases 0; the frontend ``frontend_dim ** -0.5``; MLA's, mamba's and
+    the MoE's as ``init_mla``, ``init_mamba`` and ``init_moe`` say).
     Runs on ``device`` (default cuda); the generator may live on the
     CPU."""
     model = Model(cfg, device=device, dtype=dtype)
+    if cfg.frontend_dim:
+        normal_(model.frontend.weight, dense_std(cfg.frontend_dim),
+                generator)
     # d^-0.5 embedding scale keeps tied-head logits ~N(0,1) at init
     normal_(model.embed, cfg.d_model ** -0.5, generator)
     for block in model.layers:
@@ -190,16 +188,22 @@ class ModelOutput(NamedTuple):
 
 def apply_model(model: Model, batch, *, caches=None, decode: bool = False,
                 pos_offset=0, logits_mode: str = "all") -> ModelOutput:
-    """batch: ``{"tokens": (B, S) int}``. ``caches``: ``init_caches``'s list
-    (one ``KVCache`` or ``SSMCache`` per layer) or None. ``pos_offset`` may be an int or a
-    0-d tensor on the model's device (the decode position). Returns the
-    logits ``(B, S, vocab)`` (``logits_mode="last"``: ``(B, 1, vocab)``)
-    and the new caches (None without caches)."""
+    """batch: ``{"tokens": (B, S) int}``, or ``{"embeds": (B, S,
+    frontend_dim)}`` where the config has a frontend. ``caches``:
+    ``init_caches``'s list (one ``KVCache``, ``KVCacheQ`` or ``SSMCache``
+    per layer) or None. ``pos_offset`` may be an int or a 0-d tensor on
+    the model's device (the decode position). Returns the logits ``(B, S,
+    vocab)`` (``logits_mode="last"``: ``(B, 1, vocab)``) and the new
+    caches (None without caches)."""
     cfg = model.cfg
-    tokens = batch["tokens"]
-    x = F.embedding(tokens.long(), model.embed)
+    if cfg.frontend_dim:
+        x = model.frontend(batch["embeds"].to(model.frontend.weight.dtype))
+    else:
+        x = F.embedding(batch["tokens"].long(), model.embed)
     S = x.shape[1]
     positions = pos_offset + torch.arange(S, device=x.device)
+    if not cfg.causal and not cfg.rope_theta:
+        x = x + sinusoidal_pos(positions, cfg.d_model)[None].to(x.dtype)
     new_caches = []
     for i, block in enumerate(model.layers):
         x, nc = block(x, positions=positions,
@@ -221,10 +225,12 @@ def apply_model(model: Model, batch, *, caches=None, decode: bool = False,
 # ---------------------------------------------------------------------------
 
 def _layer_cache(cfg, spec, B, S_max, dtype, device):
-    """GQA: ``KVCache`` k and v ``(B, S_max, KV, dh)``; MLA: ``c_kv``
-    ``(B, S_max, kv_lora)`` and ``k_rope`` ``(B, S_max, rope)``; mamba:
-    ``SSMCache`` with ``state`` ``(B, H, P, N)`` in float32 whatever
-    ``dtype``, ``conv`` ``(B, d_conv - 1, di + 2 N)``."""
+    """GQA: ``KVCache`` k and v ``(B, S_max, KV, dh)``, or with
+    ``cfg.kv_quant`` ``KVCacheQ``: int8 codes ``(B, S_max, KV, dh)`` and
+    float32 scales ``(B, S_max, KV, 1)`` whatever ``dtype``; MLA:
+    ``c_kv`` ``(B, S_max, kv_lora)`` and ``k_rope`` ``(B, S_max, rope)``;
+    mamba: ``SSMCache`` with ``state`` ``(B, H, P, N)`` in float32
+    whatever ``dtype``, ``conv`` ``(B, d_conv - 1, di + 2 N)``."""
     length = torch.tensor(0, dtype=torch.int32, device=device)
     if spec[0] == "mamba":
         s = cfg.ssm
@@ -238,6 +244,11 @@ def _layer_cache(cfg, spec, B, S_max, dtype, device):
     if cfg.attn_type == "mla":
         shapes = ((B, S_max, cfg.mla.kv_lora_rank),
                   (B, S_max, cfg.mla.qk_rope_dim))
+    elif cfg.kv_quant:
+        codes = (B, S_max, cfg.n_kv_heads, cfg.dh)
+        leaves = ((codes, torch.int8), (codes[:-1] + (1,), torch.float32))
+        return KVCacheQ(*(torch.zeros(s, dtype=dt, device=device)
+                          for s, dt in leaves * 2), length)
     else:
         shapes = ((B, S_max, cfg.n_kv_heads, cfg.dh),) * 2
     return KVCache(*(torch.zeros(s, dtype=dtype, device=device)
@@ -246,10 +257,9 @@ def _layer_cache(cfg, spec, B, S_max, dtype, device):
 
 def init_caches(cfg: ModelConfig, B: int, S_max: int, dtype=torch.bfloat16,
                 device=None) -> list:
-    """One empty cache per layer, ``KVCache`` or ``SSMCache`` by the
-    layer's mixer (the JAX package stacks the body's along a leading
-    period axis)."""
-    check_supported(cfg)
+    """One empty cache per layer, ``KVCache`` (``KVCacheQ`` with
+    ``cfg.kv_quant``) or ``SSMCache`` by the layer's mixer (the JAX
+    package stacks the body's along a leading period axis)."""
     dev = resolve_device(device)
     return [_layer_cache(cfg, spec, B, S_max, dtype, dev)
             for spec in layer_plan(cfg)]

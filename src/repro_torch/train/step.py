@@ -22,7 +22,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import softmax_cross_entropy
-from repro_torch.models.model import Model, apply_model, check_supported
+from repro_torch.models.model import Model, apply_model
 from repro_torch.optim.adamw import (AdamWConfig, OptState, apply_updates,
                                      init_opt_state)
 
@@ -69,8 +69,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
     equal row slices of the batch in ``grad_dtype``, then divided), cast
     to ``grad_dtype``, and one ``apply_updates``. Metrics: ``loss``,
     ``tokens`` (0 with microbatches, as the reference), ``lr``,
-    ``grad_norm``, as tensors."""
-    check_supported(cfg)
+    ``grad_norm``, as tensors. A parameter the loss does not reach (an
+    encoder's ``embed``) gets a zero gradient, as ``jax.grad`` gives."""
     gdt = GRAD_DTYPES[tcfg.grad_dtype]
 
     def grads_of(params: dict, model: Model, batch):

@@ -200,6 +200,18 @@ def test_launch_geometry_bf16_serve_shape_on_mma_sync():
     assert g.grid == (72, 16)
 
 
+def test_launch_geometry_at_the_encoder_shape():
+    """hubert-xlarge's attention (8 x 1024 frames, 16 heads of 80,
+    float32): ``flash_fwd_mma`` with q in shared memory, 32-key tiles, dh
+    padded to 80 and dv to 96."""
+    g = fak.launch_geometry(8, 1024, 16, 80, 80, torch.float32)
+    assert not g.wgmma and not g.q_in_registers and g.block_k == 32
+    assert (g.dh_pad, g.dv_pad, g.dv_class) == (80, 96, 128)
+    assert (g.k_stride, g.v_stride) == (80, 100)
+    assert g.smem_bytes == (2 * 32 * (80 + 100) + 64 * 80) * 4 == 66560
+    assert g.grid == (128, 16)
+
+
 def test_launch_geometry_largest_fits_one_block_per_sm():
     g = fak.launch_geometry(1, 64, 1, 256, 256, torch.float32)
     assert not g.wgmma and not g.q_in_registers and g.dv_class == 256

@@ -749,6 +749,7 @@ def test_traced_solve_on_card_equals_untraced(cuda_device, kind, kw,
         assert "bucket/pad" in names and "device-solve" in names
 
 
+HUBERT_TRAIN_SHAPE = ((4, 1024, 1024, 16, 16, 80, 80), False)
 # (B, Sq, Sk, H, KV, dh, dv), causal: the JAX kernel test's five shapes,
 # ragged lengths (tails of both tiles), Sq != Sk, and the widths of the
 # later MLA slice (dh 192, dv 128) and the limit (256)
@@ -779,6 +780,9 @@ K6_SWEEP = [
     # deepseek-v2's MLA prefill at the smoke's 8 x 1024 tokens: 128 heads,
     # qk 128 + 64, v 128 (flash_fwd_mma)
     ((8, 1024, 1024, 128, 128, 192, 128), True),
+    # hubert-xlarge's train step: 4 x 1024 frames, 16 heads of 80,
+    # non-causal (flash_fwd_mma, dh_pad 80, dv_pad 96)
+    HUBERT_TRAIN_SHAPE,
 ]
 
 
@@ -864,9 +868,12 @@ def test_k6_refuses_a_geometry_that_does_not_fit(
         fak.flash_attention_fwd(q, k, v, causal=True)
 
 
-@pytest.mark.parametrize("dims,causal,dtype", FLASH_CASES,
+LSE_CASES = FLASH_CASES + [(*HUBERT_TRAIN_SHAPE, torch.float32)]
+
+
+@pytest.mark.parametrize("dims,causal,dtype", LSE_CASES,
                          ids=[f"{d}-{c}-{str(t)[6:]}" for d, c, t in
-                              FLASH_CASES])
+                              LSE_CASES])
 def test_k6_lse_close_to_plain(cuda_device, dims, causal, dtype):
     """K6's log-sum-exp output (``return_lse``) against the plain
     version's, within ``chip_smoke.LSE_TOL``; the output is the call's
@@ -885,11 +892,13 @@ def test_k6_lse_close_to_plain(cuda_device, dims, causal, dtype):
 
 # (B, Sq, Sk, H, KV, dh, dv), causal, dtype: flash_fwd_wgmma (float32, dh
 # and dv <= 64) over several key chunks, flash_fwd_mma (dh above 64; qk
-# 48 / v 32 in bf16; MQA), tails off the tiles
+# 48 / v 32 in bf16; MQA), tails off the tiles, and hubert-xlarge's
+# width (16 heads of 80, non-causal) over two key chunks of 512
 K6_GRAD = [((2, 256, 256, 9, 3, 64, 64), True, torch.float32),
            ((1, 100, 100, 4, 2, 72, 72), True, torch.float32),
            ((1, 64, 96, 4, 1, 48, 32), False, torch.float32),
-           ((1, 128, 128, 6, 2, 48, 32), True, torch.bfloat16)]
+           ((1, 128, 128, 6, 2, 48, 32), True, torch.bfloat16),
+           ((1, 1024, 1024, 16, 16, 80, 80), False, torch.float32)]
 
 
 @pytest.mark.parametrize("dims,causal,dtype", K6_GRAD)
@@ -958,6 +967,43 @@ def test_train_step_on_card_close_to_cpu(cuda_device):
     assert abs(la - lb) <= 1e-5 * abs(lb)
     for a, b in zip(ga, gb):
         assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+
+
+def test_encoder_train_step_on_card_close_to_cpu(cuda_device):
+    """hubert-xlarge's smoke variant (the frontend, sinusoidal positions,
+    non-causal MHA of 32, LayerNorm, GELU) on the pipeline's frame rows:
+    the loss and every gradient of ``loss_fn`` on the card (K6 forward,
+    non-causal, once per layer) against the CPU path's within 1e-4 x each
+    leaf's largest |g|, ``embed``'s exactly zero on both, and its encoder
+    forward under ``torch.inference_mode`` launching K6 once per layer
+    within 1e-4 x the CPU's largest |logit|."""
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.train import step as tstep
+    cfg = smoke_variant(get_config("hubert-xlarge"))
+    params = numpy_params(cfg, seed=0)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=128, global_batch=2,
+                      frontend_dim=cfg.frontend_dim)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        model = model_from_params(cfg, params, device=dev)
+        batch = make_batch(dcfg, 0, dev)
+        before = fak.flash_attention_fwd.launches
+        loss, _ = tstep.loss_fn(model, batch)
+        ps = tstep.params_of(model)
+        g = torch.autograd.grad(loss, list(ps.values()), allow_unused=True)
+        assert g[list(ps).index("embed")] is None
+        with torch.inference_mode():
+            logits = apply_model(model, {"embeds": batch["embeds"]}).logits
+        assert fak.flash_attention_fwd.launches - before == (
+            2 * cfg.n_layers if dev.type == "cuda" else 0)
+        out[dev.type] = (float(loss), [x.cpu() for x in g if x is not None],
+                         logits.cpu())
+    (la, ga, xa), (lb, gb, xb) = out["cuda"], out["cpu"]
+    assert abs(la - lb) <= 1e-5 * abs(lb)
+    assert len(ga) == len(gb) == len(ps) - 1
+    for a, b in zip(ga, gb):
+        assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+    assert (xa - xb).abs().max().item() <= 1e-4 * xb.abs().max().item()
 
 
 def test_serve_on_card_close_to_cpu(cuda_device):

@@ -36,8 +36,8 @@ from repro.models import attention as jattn
 from repro.models import mlp as jmlp
 from repro_torch.core.routing import auction_route, topk_route
 from repro_torch.models import mlp as tmlp
-from repro_torch.models.attention import (GQA, MLA, KVCache, init_mla,
-                                         mla_apply)
+from repro_torch.models.attention import (GQA, MLA, KVCache, KVCacheQ,
+                                         init_mla, mla_apply)
 from repro_torch.models.mamba import Mamba, SSMCache
 from repro_torch.models.mlp import MLP, MoE, init_moe, moe_apply
 
@@ -49,9 +49,11 @@ PHI = "phi3.5-moe-42b-a6.6b"
 DEEPSEEK = "deepseek-v2-236b"
 MAMBA = "mamba2-370m"
 JAMBA = "jamba-v0.1-52b"
-RUNNABLE = ["chameleon-34b", "command-r-plus-104b", DEEPSEEK, JAMBA,
+HUBERT = "hubert-xlarge"
+RUNNABLE = ["chameleon-34b", "command-r-plus-104b", DEEPSEEK, HUBERT, JAMBA,
             MAMBA, "minitron-8b", "nemotron-4-340b", PHI, "smollm-135m"]
-UNPORTED = {"hubert-xlarge": "encoder"}
+# the archs with a decode path: every one but the encoder
+DECODERS = [a for a in RUNNABLE if a != HUBERT]
 
 
 def _cfgs(arch):
@@ -76,10 +78,10 @@ def _close(got, want, what=""):
 
 def test_registry_equals_jax():
     assert list_configs() == jax_list_configs()
-    assert sorted(RUNNABLE + list(UNPORTED)) == list_configs()
+    assert sorted(RUNNABLE) == list_configs()
 
 
-@pytest.mark.parametrize("arch", sorted(RUNNABLE + list(UNPORTED)))
+@pytest.mark.parametrize("arch", sorted(RUNNABLE))
 def test_config_and_plan_equal_jax(arch):
     cfg, jcfg = _cfgs(arch)
     full, jfull = get_config(arch), jax_get_config(arch)
@@ -92,26 +94,31 @@ def test_config_and_plan_equal_jax(arch):
         assert tmodel.plan_period(a) == jmodel.plan_period(b)
 
 
-@pytest.mark.parametrize("arch", sorted([*UNPORTED, PHI, DEEPSEEK, JAMBA,
+@pytest.mark.parametrize("arch", sorted([HUBERT, PHI, DEEPSEEK, JAMBA,
                                          MAMBA]))
 def test_unported_family_raises(arch):
-    """Each family the port lacks raises naming what it lacks; the families
-    the port now runs build and get the JAX params tree: phi3.5-moe and
-    deepseek-v2 (MoE layers; MLA mixers after a dense prefix), mamba2 (a
-    ``Mamba`` mixer in every layer, no FFN) and jamba (attention at every
-    ``attn_period``-th layer, mamba elsewhere, the MoE at every other
-    layer, an ``MLP`` between)."""
+    """The families ported after the dense one build and get the JAX
+    params tree: hubert-xlarge (the encoder: a ``frontend`` projection,
+    non-causal MHA ``GQA`` without RoPE, LayerNorm with biases, a GELU
+    ``MLP``), phi3.5-moe and deepseek-v2 (MoE layers; MLA mixers after a
+    dense prefix), mamba2 (a ``Mamba`` mixer in every layer, no FFN) and
+    jamba (attention at every ``attn_period``-th layer, mamba elsewhere,
+    the MoE at every other layer, an ``MLP`` between). No family
+    raises any more."""
     cfg, jcfg = _cfgs(arch)
-    if arch in UNPORTED:
-        with pytest.raises(NotImplementedError,
-                           match=f"{UNPORTED[arch]}.*ROADMAP M9"):
-            tmodel.init_model(cfg, torch.Generator(), device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP M9"):
-            numpy_params(cfg)
-        return
     model = tmodel.init_model(cfg, torch.Generator(), device="cpu")
     n_pre = cfg.n_dense_prefix
-    if arch in (PHI, DEEPSEEK):
+    if arch == HUBERT:
+        assert not cfg.causal and not cfg.rope_theta
+        assert tuple(model.frontend.weight.shape) == (cfg.d_model,
+                                                      cfg.frontend_dim)
+        assert model.frontend.bias is None
+        assert all(isinstance(b.mixer, GQA) and isinstance(b.ffn, MLP)
+                   and b.norm1.kind == b.norm2.kind == "layernorm"
+                   and hasattr(b.norm1, "b") for b in model.layers)
+        assert cfg.n_kv_heads == cfg.n_heads and not cfg.gated_mlp
+        assert hasattr(model.final_norm, "b") and hasattr(model, "lm_head")
+    elif arch in (PHI, DEEPSEEK):
         assert all(isinstance(b.ffn, MoE) for b in model.layers[n_pre:])
         assert all(isinstance(b.ffn, MLP) for b in model.layers[:n_pre])
         assert all(isinstance(b.mixer, MLA) == (arch == DEEPSEEK)
@@ -134,11 +141,28 @@ def test_unported_family_raises(arch):
 
 
 def test_unported_pieces_raise():
-    """The int8 cache still raises; ``init_mla`` and ``mla_apply``, ported,
-    build a layer and run it (prefill into a cache, then a decode step)."""
+    """Nothing the reference runs raises any more: ``kv_quant=True``
+    builds ``KVCacheQ`` caches (int8 codes, float32 scales) that a prefill
+    fills and a decode step extends; ``init_mla`` and ``mla_apply`` build
+    an MLA layer and run it (prefill into a cache, then a decode step)."""
     cfg = dataclasses.replace(_cfgs("smollm-135m")[0], kv_quant=True)
-    with pytest.raises(NotImplementedError, match="int8 KV cache"):
-        tmodel.Model(cfg, device="cpu")
+    model = tmodel.init_model(cfg, torch.Generator().manual_seed(0),
+                              device="cpu")
+    caches = tmodel.init_caches(cfg, 2, 8, dtype=torch.float32, device="cpu")
+    assert all(isinstance(c, KVCacheQ) for c in caches)
+    assert caches[0].k_q.dtype == caches[0].v_q.dtype == torch.int8
+    assert caches[0].k_s.dtype == caches[0].v_s.dtype == torch.float32
+    assert tuple(caches[0].k_s.shape) == (2, 8, cfg.n_kv_heads, 1)
+    toks = torch.randint(0, cfg.vocab, (2, 7), generator=torch.Generator())
+    with torch.no_grad():
+        pre = tmodel.apply_model(model, {"tokens": toks[:, :6]},
+                                 caches=caches)
+        dec = tmodel.apply_model(model, {"tokens": toks[:, 6:]},
+                                 caches=pre.caches, decode=True,
+                                 pos_offset=6)
+    assert all(int(c.length) == 7 for c in dec.caches)
+    assert bool(dec.caches[0].k_q[:, :7].abs().amax(-1).eq(127).all())
+    assert torch.isfinite(dec.logits).all()
     cfg = _cfgs(DEEPSEEK)[0]
     p = init_mla(MLA(cfg, device="cpu"), torch.Generator().manual_seed(0))
     cache = tmodel.init_caches(cfg, 2, 8, dtype=torch.float32,
@@ -258,15 +282,26 @@ def _setup(arch, B=2, S=16):
     return cfg, jcfg, params, model_from_params(cfg, params, "cpu"), toks
 
 
+def _inputs(cfg, toks):
+    """The model's input for ``toks``' shape: the tokens, or for a config
+    with a frontend seeded frame embeddings ``(B, S, frontend_dim)``."""
+    if not cfg.frontend_dim:
+        return {"tokens": toks}
+    return {"embeds": np.random.default_rng(1).standard_normal(
+        toks.shape + (cfg.frontend_dim,), dtype=np.float32)}
+
+
 @pytest.mark.parametrize("mode", ["all", "last"])
 @pytest.mark.parametrize("arch", RUNNABLE)
 def test_apply_model_matches_jax(arch, mode):
     cfg, jcfg, params, model, toks = _setup(arch)
+    batch = _inputs(cfg, toks)
     want = jmodel.apply_model(params, _axes(jcfg), jcfg, Sharder(),
-                              {"tokens": jnp.asarray(toks)},
+                              {k: jnp.asarray(x) for k, x in batch.items()},
                               logits_mode=mode)
     with torch.no_grad():
-        got = tmodel.apply_model(model, {"tokens": torch.tensor(toks)},
+        got = tmodel.apply_model(model, {k: torch.tensor(x)
+                                         for k, x in batch.items()},
                                  logits_mode=mode)
     assert got.caches is None and want.caches is None
     assert tuple(got.logits.shape) == want.logits.shape
@@ -306,7 +341,7 @@ def _caches_close(got, want, what, length):
                if isinstance(c, SSMCache))
 
 
-@pytest.mark.parametrize("arch", RUNNABLE)
+@pytest.mark.parametrize("arch", DECODERS)
 def test_prefill_then_decode_step_match_jax(arch):
     """Prefill S - 1 tokens into S + 4 caches, then decode the last one:
     the caches (``k`` / ``v`` of attention layers, ``state`` / ``conv`` of

@@ -430,6 +430,38 @@ def test_check_moe_dispatch_fails_on_a_flip_where_jax_was_stable():
     assert chip_smoke.check_moe_dispatch(seen, marks, [0, 0, 0], 2) == 0
 
 
+def test_unmarked_flips_count_only_stable_decisions():
+    """``chip_smoke.unmarked_flips`` counts the port's own routing
+    decisions off JAX's where JAX's marks call them stable: a prefill row
+    unless its token is marked, a decode row while the request's tokens
+    fed so far are JAX's and its decision is not marked."""
+    marks = _moe_marks()
+    marks["prefill_scores"] = np.zeros((2, 1, 5, 4), np.float32)
+    marks["prefill_token_unstable"] = np.zeros((2, 5), bool)
+    seen = ([("auction_route", 3, torch.tensor(d))
+             for d in marks["prefill_dispatch"]]
+            + [("topk_route", 3, torch.tensor(marks["decode_dispatch"][t, i]))
+               for t in range(3) for i in range(2)])
+    tokens = np.zeros((3, 4), np.int32)
+    got = chip_smoke.unmarked_flips(seen, marks, tokens, tokens)
+    assert (got["prefill"], got["prefill_rows"]) == (0, 10)
+    assert (got["decode"], got["decode_rows"]) == (0, 3 * 2 * 3)
+    seen[1][2][0, 3, 2] = True                  # prefill layer 1, token 3
+    seen[2 + 2 * 1 + 0][2][0, 1, 0] = True      # decode step 2, layer 0
+    got = chip_smoke.unmarked_flips(seen, marks, tokens, tokens)
+    assert got["prefill"] == 1 and got["prefill_at"] == [(1, 3)]
+    assert got["decode"] == 1 and got["decode_at"] == [(2, 0, 1)]
+    marks["prefill_token_unstable"][1, 3] = True
+    marks["decode_unstable"][1, 0, 1] = True
+    got = chip_smoke.unmarked_flips(seen, marks, tokens, tokens)
+    assert (got["prefill"], got["prefill_rows"]) == (0, 9)
+    assert (got["decode"], got["decode_rows"]) == (0, 3 * 2 * 3 - 1)
+    other = tokens.copy()
+    other[2, 1] = 7             # request 2 leaves JAX's tokens at token 1
+    got = chip_smoke.unmarked_flips(seen, marks, other, tokens)
+    assert got["decode_rows"] == 3 * 2 * 3 - 1 - 2 * 2
+
+
 def test_check_serve_stops_where_told():
     rng = np.random.default_rng(1)
     logits = [rng.normal(size=(2, 50)).astype(np.float32) for _ in range(3)]

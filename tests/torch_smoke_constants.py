@@ -1,6 +1,6 @@
 """Constants of the JAX package that ``chip_smoke.py`` holds the port to.
 
-    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_smoke_constants.py [rounds|serve|moe|deepseek|mamba|train]
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_smoke_constants.py [rounds|serve|moe|deepseek|mamba|train|encoder|kvq]
 
 ``chip_smoke.py`` runs where JAX is not installed, so what it compares
 with the JAX package is made here, on the CPU, from the same inputs:
@@ -63,8 +63,24 @@ with the JAX package is made here, on the CPU, from the same inputs:
   of ``chip_smoke.TRAIN_LEAVES`` (the leaf's largest |g| among them) and
   that largest |g| go to ``chip_smoke.TRAIN_CONSTANTS``.
 
-With no argument it makes all six.
+* ``encoder`` (about 13 minutes on 8 cores, 19 GiB resident at its
+  peak; run it alone): the encoder phase's reference. hubert-xlarge at
+  full width and depth, ``numpy_params(cfg, chip_smoke.SEED)``, the JAX
+  package's own rows (``rows_batch``, checked equal to the port's) of
+  ``chip_smoke.encoder_data``: ``apply_model``'s logits on the
+  ``ENC_B`` x ``ENC_S`` forward batch at ``chip_smoke.sample_positions``
+  to ``chip_smoke.ENCODER_LOGITS``; JAX's ``make_train_step`` with
+  ``Sharder()`` and the config's own ``remat="full"`` on ``ENC_STEPS``
+  batches of ``ENC_TRAIN_B`` x ``ENC_S`` frames (loss, lr and grad_norm
+  per step), the step-0 gradients of ``chip_smoke.ENCODER_LEAVES``
+  sampled as ``train``'s (``embed``'s must be 0) and each batch's
+  ``chip_smoke.rows_digest`` to ``chip_smoke.ENCODER_CONSTANTS``.
+* ``kvq`` (about 35 s): ``serve``'s reference for smollm-135m with
+  ``kv_quant=True`` (the int8 cache), to ``chip_smoke.KVQ_CONSTANTS``.
+
+With no argument it makes all eight.
 """
+import dataclasses
 import json
 import pathlib
 import sys
@@ -441,6 +457,28 @@ def mamba() -> None:
           f" GiB", flush=True)
 
 
+def sampled_grads(g, leaves: dict) -> dict:
+    """Per leaf of ``leaves`` (``chip_smoke.TRAIN_LEAVES``' layout): its
+    JAX shape, ``chip_smoke.TRAIN_SAMPLE`` seeded flat indices and the
+    largest |g|'s, the values there and that largest |g|."""
+    rng = np.random.default_rng(chip_smoke.SEED)
+    grads = {}
+    for name, (path, layer) in leaves.items():
+        leaf = g
+        for key in path:
+            leaf = leaf[key]
+        leaf = np.asarray(leaf if layer is None else leaf[layer])
+        flat = np.abs(leaf.reshape(-1))
+        index = np.unique(np.append(rng.choice(
+            flat.size, min(chip_smoke.TRAIN_SAMPLE, flat.size),
+            replace=False), np.argmax(flat)))
+        grads[name] = dict(shape=list(leaf.shape), index=index.tolist(),
+                           value=[float(x) for x in
+                                  leaf.reshape(-1)[index]],
+                           absmax=float(flat.max()))
+    return grads
+
+
 def train() -> None:
     import resource
 
@@ -459,21 +497,7 @@ def train() -> None:
     shd = Sharder()
     grad_fn = jax.jit(jax.grad(lambda p, b: loss_fn(p, axes, cfg, shd, b)[0]))
     g = grad_fn(params, batches[0])
-    rng = np.random.default_rng(chip_smoke.SEED)
-    grads = {}
-    for name, (path, layer) in chip_smoke.TRAIN_LEAVES.items():
-        leaf = g
-        for key in path:
-            leaf = leaf[key]
-        leaf = np.asarray(leaf if layer is None else leaf[layer])
-        flat = np.abs(leaf.reshape(-1))
-        index = np.unique(np.append(rng.choice(
-            flat.size, min(chip_smoke.TRAIN_SAMPLE, flat.size),
-            replace=False), np.argmax(flat)))
-        grads[name] = dict(shape=list(leaf.shape), index=index.tolist(),
-                           value=[float(x) for x in
-                                  leaf.reshape(-1)[index]],
-                           absmax=float(flat.max()))
+    grads = sampled_grads(g, chip_smoke.TRAIN_LEAVES)
     del g
     print(f"# step-0 gradients ({time.perf_counter() - t0:.0f} s)",
           flush=True)
@@ -498,9 +522,92 @@ def train() -> None:
           f" GiB", flush=True)
 
 
+def encoder() -> None:
+    import resource
+
+    from repro.configs.base import get_config
+    from repro.data.pipeline import DataConfig, rows_batch
+    from repro.optim.adamw import AdamWConfig
+    from repro.train.step import (TrainConfig, init_train_state, loss_fn,
+                                  make_train_step)
+    from repro_torch.data.pipeline import rows_batch as port_rows_batch
+    t0 = time.perf_counter()
+    cfg = get_config(chip_smoke.ENCODER_ARCH)
+    params, axes = _jax_params(cfg)
+    shd = Sharder()
+
+    def rows(global_batch: int, step: int) -> dict:
+        dcfg = chip_smoke.encoder_data(global_batch)
+        out = rows_batch(DataConfig(**dataclasses.asdict(dcfg)), step, 0,
+                         global_batch)
+        ours = port_rows_batch(dcfg, step, 0, global_batch)
+        assert all(np.array_equal(out[k], ours[k]) for k in out)
+        return out
+    fwd = rows(chip_smoke.ENC_B, 0)
+    batches = [rows(chip_smoke.ENC_TRAIN_B, step)
+               for step in range(chip_smoke.ENC_STEPS)]
+    print(f"# {cfg.name}, {cfg.n_layers} layers, remat {cfg.remat}: "
+          f"weights and rows in {time.perf_counter() - t0:.0f} s",
+          flush=True)
+    positions = jnp.asarray(chip_smoke.sample_positions(chip_smoke.ENC_S))
+    forward = jax.jit(lambda p, e: apply_model(
+        p, axes, cfg, shd, {"embeds": e}).logits[:, positions])
+    logits = np.asarray(forward(params, jnp.asarray(fwd["embeds"])))
+    print(f"# forward of {fwd['embeds'].shape} frames "
+          f"({time.perf_counter() - t0:.0f} s)", flush=True)
+    jb = [{k: jnp.asarray(x) for k, x in b.items()} for b in batches]
+    grad_fn = jax.jit(jax.grad(lambda p, b: loss_fn(p, axes, cfg, shd, b)[0]))
+    g = grad_fn(params, jb[0])
+    assert not np.asarray(g["embed"]).any(), "embed has a gradient"
+    grads = sampled_grads(g, chip_smoke.ENCODER_LEAVES)
+    del g
+    print(f"# step-0 gradients ({time.perf_counter() - t0:.0f} s)",
+          flush=True)
+    tcfg = TrainConfig(optimizer=AdamWConfig(
+        lr_peak=chip_smoke.TRAIN_LR, warmup_steps=chip_smoke.TRAIN_WARMUP,
+        decay_steps=chip_smoke.ENC_STEPS))
+    state = init_train_state(cfg, tcfg, params)
+    del params
+    step_fn = jax.jit(make_train_step(cfg, axes, tcfg, shd),
+                      donate_argnums=(0,))
+    steps = []
+    for step, batch in enumerate(jb):
+        state, m = step_fn(state, batch)
+        steps.append({k: float(m[k]) for k in ("loss", "lr", "grad_norm")})
+        print(f"# step {step}: {steps[-1]} ({time.perf_counter() - t0:.0f} "
+              f"s)", flush=True)
+    del state
+    np.savez_compressed(chip_smoke.ENCODER_LOGITS, logits=logits)
+    chip_smoke.ENCODER_CONSTANTS.write_text(json.dumps(dict(
+        chip_smoke.encoder_setup(), steps=steps, grads=grads,
+        rows={"forward": chip_smoke.rows_digest(fwd),
+              "train": [chip_smoke.rows_digest(b) for b in batches]},
+        numpy_version=np.__version__)) + "\n")
+    print(f"# wrote {chip_smoke.ENCODER_CONSTANTS.relative_to(ROOT)} and "
+          f"{chip_smoke.ENCODER_LOGITS.relative_to(ROOT)} "
+          f"({time.perf_counter() - t0:.0f} s); peak resident memory "
+          f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.1f}"
+          f" GiB", flush=True)
+
+
+def kvq() -> None:
+    from repro.configs.base import get_config
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(chip_smoke.SERVE_ARCH),
+                              kv_quant=True)
+    out = serve_constants(cfg, B=chip_smoke.SERVE_B, S=chip_smoke.SERVE_S,
+                          max_new=chip_smoke.SERVE_NEW, seed=chip_smoke.SEED)
+    chip_smoke.KVQ_CONSTANTS.write_text(json.dumps(dict(
+        out, **chip_smoke.kvq_setup())) + "\n")
+    print(f"# wrote {chip_smoke.KVQ_CONSTANTS.relative_to(ROOT)} "
+          f"({time.perf_counter() - t0:.0f} s); request 0 tokens "
+          f"{out['tokens'][0]}", flush=True)
+
+
 if __name__ == "__main__":
     which = sys.argv[1:] or ["rounds", "serve", "moe", "deepseek", "mamba",
-                             "train"]
+                             "train", "encoder", "kvq"]
     for name in which:
         {"rounds": rounds, "serve": serve, "moe": moe,
-         "deepseek": deepseek, "mamba": mamba, "train": train}[name]()
+         "deepseek": deepseek, "mamba": mamba, "train": train,
+         "encoder": encoder, "kvq": kvq}[name]()
