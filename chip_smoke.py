@@ -189,12 +189,16 @@ Drives ``src/repro_torch`` only (no ``jax``, nothing of ``repro``):
    sampled entries, each step's loss, lr and ``grad_norm`` are held to
    the JAX package's ``make_train_step`` on the same weights and rows
    (``tests/torch_smoke_train.json``); K6 (with its log-sum-exp output)
-   must launch once per layer in each step, all on ``flash_fwd_wgmma``,
-   and no other port kernel; the train state must come back from
-   ``checkpoint.store`` bit for bit. The first step is a warm-up and the
-   others are timed (tok/s); a profiled step gives device busy, idle
-   share, the largest device items and their split by kernel name; the
-   phase logs the peak device memory. Phase 2 also holds K6's
+   must launch twice per layer in each step (the forward and the
+   recompute of the config's remat ``"full"``), all on
+   ``flash_fwd_wgmma``, and no other port kernel; the train state must
+   come back from ``checkpoint.store`` bit for bit. The first step is a
+   warm-up and the others are timed (tok/s); a profiled step gives device
+   busy, idle share, the largest device items and their split by kernel
+   name; the phase logs the peak device memory. Then ``remat_modes``:
+   the gradients under remat ``"none"`` and ``"dots"`` equal ``"full"``'s
+   bit for bit, and a step under each mode gives its wall and peak beside
+   the dry run's predicted peak. Phase 2 also holds K6's
    log-sum-exp output to its plain version's (LSE_TOL) at every shape
    and times it at the serve shape;
 16. drives the encoder (``phase_encoder``, ROADMAP M9b.4): hubert-xlarge
@@ -209,8 +213,9 @@ Drives ``src/repro_torch`` only (no ``jax``, nothing of ``repro``):
    ``flash_fwd_mma``; then ENC_STEPS steps of ``make_train_step`` on
    ENC_TRAIN_B x ENC_S frames held to JAX's loss, lr and grad_norm, the
    step-0 gradients of ENCODER_LEAVES to JAX's and none reaching
-   ``embed`` (``tests/torch_smoke_encoder.json``), K6 once per layer in
-   each step; every batch's rows must hash as the constants' did. Phase
+   ``embed`` (``tests/torch_smoke_encoder.json``), K6 twice per layer in
+   each step (remat ``"full"``), then ``remat_modes`` as phase 15; every
+   batch's rows must hash as the constants' did. Phase
    2 holds K6 at the forward's shape (8 x 1024 frames, 16 heads of 80,
    non-causal) and at the train step's (4 x 1024 frames, with its lse)
    to its plain version and times it at the forward's against
@@ -224,10 +229,22 @@ Drives ``src/repro_torch`` only (no ``jax``, nothing of ``repro``):
    step; then after one more prefill the int8 cache of layers KVQ_LAYERS
    dequantised lies within one code step of the float cache's; the
    decode step's wall is logged beside the float cache's, with the
-   cache's bytes.
+   cache's bytes;
+18. reads the dry run (``phase_dryrun``, ROADMAP M9b.7), counted on
+   ``meta`` by processes started with the smoke: every arch x shape of
+   the reference for one card, each ``ok`` or skipped exactly where the
+   reference's ``cell_skip_reason`` says (a ``[dryrun]`` line each, and
+   jamba-v0.1's predicted memory), then runs smollm-135m's prefill_32k
+   (32 x 32,768 tokens) and decode_32k (a cache of 32,767 tokens at the
+   largest power-of-two batch predicted within DRYRUN_DECODE_BYTES) whole
+   on the card in bfloat16 through ``run_cell(device="cuda")``, counted
+   and then timed: the card's FLOPs and bytes equal to the ``meta``
+   count, each peak within DRYRUN_PEAK_TOL of the prediction, finite
+   logits, K6 once per layer in the prefill and never in decode; the
+   wall against the roofline time, and K6 alone at the prefill's shape.
 
 The phases' walls are logged on one ``[walls]`` line at the end
-(``train``, ``encoder`` and ``kvq`` among them).
+(``train``, ``encoder``, ``kvq`` and ``dryrun`` among them).
 
 Prints one JSON line per kernel summary, the ``nvidia-smi`` name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero
@@ -237,7 +254,9 @@ repository.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -488,6 +507,40 @@ K5_SHARES = (0.5, 0.03, 0.95)
 # they do not depend on the machine (a CPU count with the hook of
 # ``k5_reads``), so any other count means the solve changed
 K5_READS_WANT = (150, 1_436_825)
+# the dry run (``phase_dryrun``, ROADMAP M9b.7): every arch x shape
+# counted on ``meta`` for one card (``python -m repro_torch.launch.dryrun
+# --all``) and the train phases' steps under each remat mode
+# (``write_train_predictions``), each in a process of its own started with
+# the smoke and writing under DRYRUN_DIR; then DRYRUN_ARCH's prefill_32k
+# and decode_32k cells run whole on the card in bfloat16, the decode cell
+# at the largest power-of-two batch up to its shape's whose predicted peak
+# fits DRYRUN_DECODE_BYTES. Each cell's FLOPs and bytes counted on the
+# card must equal the ``meta`` count, and its peak device memory lie
+# within DRYRUN_PEAK_TOL of the prediction
+DRYRUN_DIR = ROOT / "build" / "dryrun"
+DRYRUN_ARCH = "smollm-135m"
+DRYRUN_DECODE_BYTES = 60 * 2 ** 30
+DRYRUN_PEAK_TOL = 0.15
+DRYRUN_TIMEOUT_S = 900
+REMAT_MODES = ("full", "none", "dots")
+# K6's bounds (ms) at the smoke's shapes, from the formula chip_smoke.py
+# held before repro_torch.roofline took it over: (B, Sq, Sk, H, KV, dh,
+# dv), causal, dtype -- serve (float32, bfloat16), phi, deepseek, hubert's
+# forward and train step
+K6_BOUNDS_MS = {
+    ((8, 1024, 1024, 9, 3, 64, 64), True, torch.float32):
+        0.058624930909090905,
+    ((8, 1024, 1024, 9, 3, 64, 64), True, torch.bfloat16):
+        0.009780701314459048,
+    ((8, 1024, 1024, 32, 8, 128, 128), True, torch.float32):
+        0.4168883975757576,
+    ((8, 1024, 1024, 128, 128, 192, 128), True, torch.float32):
+        2.0844419878787876,
+    ((8, 1024, 1024, 16, 16, 80, 80), False, torch.float32):
+        0.2603010482424242,
+    ((4, 1024, 1024, 16, 16, 80, 80), False, torch.float32):
+        0.1301505241212121,
+}
 KERNEL_SOURCES = {
     "grid_push_decide": ("src/repro_torch/kernels/csrc/grid_push.cu",
                          "src/repro/kernels/grid_push/kernel.py:116"),
@@ -1074,23 +1127,26 @@ def flash_inputs(rng, dims, dtype, dev):
 
 
 def flash_bounds(dims, causal: bool, dtype) -> dict:
-    """K6's least time at ``dims``: q, k, v read and o written once, and
-    2*dh + 2*dv flops per (query, key) pair (pos_q >= pos_k when causal)
-    at the rate of the units the kernel runs them on (float32: three TF32
-    products each; bfloat16: one bf16 product), and at the FFMA rate the
-    first design ran on (``ffma_ms``)."""
+    """K6's least time at ``dims``: its work as ``repro_torch.roofline``
+    counts it (q, k, v read and o written once, 2*dh + 2*dv flops per
+    (query, key) pair, pos_q >= pos_k when causal) at the rate of the units
+    the kernel runs them on (float32: three TF32 products each; bfloat16:
+    one bf16 product), and at the FFMA rate the first design ran on
+    (``ffma_ms``). The bounds of the shapes in K6_BOUNDS_MS must not
+    move."""
+    from repro_torch.roofline import flash_attention_work
     B, Sq, Sk, H, KV, dh, dv = dims
-    es = 4 if dtype == torch.float32 else 2
-    if causal:
-        pairs = B * H * sum(min(i + 1, Sk) for i in range(Sq))
-    else:
-        pairs = B * H * Sq * Sk
-    flops = pairs * (2 * dh + 2 * dv)
-    nbytes = es * (B * Sq * H * (dh + dv) + B * Sk * KV * (dh + dv))
+    pairs, flops, nbytes = flash_attention_work(
+        B, Sq, Sk, H, KV, dh, dv, causal=causal,
+        itemsize=4 if dtype == torch.float32 else 2)
     if dtype == torch.float32:
         b_ms, b_by = bound(nbytes, 3 * flops, TF32_OPS_PER_S)
     else:
         b_ms, b_by = bound(nbytes, flops, BF16_OPS_PER_S)
+    want = K6_BOUNDS_MS.get((dims, causal, dtype))
+    if want is not None and b_ms != want:
+        raise AssertionError(f"K6's bound at {dims} moved: {b_ms} ms, "
+                             f"{want} ms before")
     return dict(bound_ms=b_ms, bound_by=b_by, causal_pairs=pairs,
                 ffma_ms=bound(nbytes, flops)[0])
 
@@ -3352,11 +3408,12 @@ def phase_train(dev, counts: dict, card: str) -> dict:
     """smollm-135m at full width and depth, trained on the card from
     ``numpy_params`` weights: the step-0 gradients of TRAIN_LEAVES and
     TRAIN_STEPS steps of ``make_train_step`` (the first a warm-up, the
-    others timed) held to the JAX package's constants, K6 launched once
-    per layer in each step (set to 0 just before it, read just after) and
-    no other port kernel; a save and restore of the train state through
-    ``checkpoint.store`` bit for bit; one profiled step (every port
-    kernel in it ``flash_fwd_wgmma``, one per layer) and the peak device
+    others timed) held to the JAX package's constants, K6 launched twice
+    per layer in each step (the forward and remat ``"full"``'s recompute;
+    set to 0 just before it, read just after) and no other port kernel; a
+    save and restore of the train state through ``checkpoint.store`` bit
+    for bit; one profiled step (every port kernel in it
+    ``flash_fwd_wgmma``, two per layer) and the peak device
     memory."""
     import shutil
 
@@ -3425,10 +3482,11 @@ def phase_train(dev, counts: dict, card: str) -> dict:
         reset_counts()
         (state, m), wall = solve(step_fn, state, batches[step])
         c = read_counts()
-        if c["flash_attention_fwd"] != cfg.n_layers:
+        if c["flash_attention_fwd"] != 2 * cfg.n_layers:
             raise AssertionError(f"train step {step}: K6 launched "
                                  f"{c['flash_attention_fwd']} times, not "
-                                 f"once per layer ({cfg.n_layers})")
+                                 f"twice per layer ({2 * cfg.n_layers}: "
+                                 f"the forward and remat's recompute)")
         require_not_launched(c, [n for n in c if n != "flash_attention_fwd"],
                              f"train step {step}")
         checks.append(check_train_metrics(step, m, want["steps"][step]))
@@ -3466,14 +3524,16 @@ def phase_train(dev, counts: dict, card: str) -> dict:
 
     t_step = sum(walls) / len(walls)
     prof = profile_k6(f"train step {TRAIN_B} x {TRAIN_S}", t_step,
-                      "flash_fwd_wgmma", cfg.n_layers, step_fn, state,
+                      "flash_fwd_wgmma", 2 * cfg.n_layers, step_fn, state,
                       batches[0], top=16, split=True)
     peak = torch.cuda.max_memory_allocated()
     log(f"[train] mean of the timed steps {t_step * 1e3:.2f} ms "
         f"({TRAIN_B * TRAIN_S / t_step:.0f} tok/s); peak device memory "
         f"{peak / 2**30:.2f} GiB; on {card}")
+    modes = remat_modes("train", cfg, tcfg, state, batches[0], card)
     return dict(walls=walls, profile=prof, peak_bytes=peak,
-                grad_check=grad_check, checks=checks, n_params=n_params)
+                grad_check=grad_check, checks=checks, n_params=n_params,
+                remat=modes)
 
 
 def check_encoder_rows(batches: dict, want: dict):
@@ -3501,9 +3561,10 @@ def phase_encoder(dev, counts: dict, card: str) -> dict:
     ENCODER_LEAVES against JAX's (``embed`` reached by none) and ENC_STEPS
     steps of ``make_train_step`` on ENC_TRAIN_B x ENC_S frames (the first
     a warm-up, the others timed), each step's loss, lr and grad_norm held
-    to JAX's, K6 launched once per layer in each step and no other port
-    kernel; one profiled step and the peak device memory. The rows of
-    every batch must be the ones the constants were made on."""
+    to JAX's, K6 launched twice per layer in each step (remat ``"full"``)
+    and no other port kernel; one profiled step, the peak device memory
+    and ``remat_modes``. The rows of every batch must be the ones the
+    constants were made on."""
     from repro_torch.configs.base import get_config
     from repro_torch.data.pipeline import make_batch
     from repro_torch.interop import model_from_params, numpy_params
@@ -3603,10 +3664,11 @@ def phase_encoder(dev, counts: dict, card: str) -> dict:
         reset_counts()
         (state, m), wall = solve(step_fn, state, batches[step])
         c = read_counts()
-        if c["flash_attention_fwd"] != cfg.n_layers:
+        if c["flash_attention_fwd"] != 2 * cfg.n_layers:
             raise AssertionError(f"encoder train step {step}: K6 launched "
                                  f"{c['flash_attention_fwd']} times, not "
-                                 f"once per layer ({cfg.n_layers})")
+                                 f"twice per layer ({2 * cfg.n_layers}: "
+                                 f"the forward and remat's recompute)")
         require_not_launched(c, [n for n in c if n != "flash_attention_fwd"],
                              f"encoder train step {step}")
         checks.append(check_train_metrics(step, m, want["steps"][step]))
@@ -3623,16 +3685,17 @@ def phase_encoder(dev, counts: dict, card: str) -> dict:
         counts.setdefault("encoder_train_step", c)
     t_step = sum(steps) / len(steps)
     prof_step = profile_k6(f"encoder train step {ENC_TRAIN_B} x {ENC_S}",
-                           t_step, "flash_fwd_mma", cfg.n_layers, step_fn,
+                           t_step, "flash_fwd_mma", 2 * cfg.n_layers, step_fn,
                            state, batches[0], top=16, split=True)
     peak = torch.cuda.max_memory_allocated()
     log(f"[encoder] forward {t_fwd * 1e3:.2f} ms ({ENC_B * ENC_S / t_fwd:.0f}"
         f" frames/s), train step {t_step * 1e3:.2f} ms "
         f"({frames / t_step:.0f} frames/s), means of the timed runs; peak "
         f"device memory {peak / 2**30:.2f} GiB; on {card}")
+    modes = remat_modes("encoder", cfg, tcfg, state, batches[0], card)
     return dict(forward_walls=walls, step_walls=steps, forward=prof_fwd,
                 step=prof_step, peak_bytes=peak, grad_check=grad_check,
-                checks=checks, n_params=n_params)
+                checks=checks, n_params=n_params, remat=modes)
 
 
 def profile_k6(what: str, wall: float, kernel: str, n: int, fn, *a,
@@ -3710,6 +3773,325 @@ def phase_kvq(dev, counts: dict, card: str, float_step: float) -> dict:
                 float_cache_bytes=f_bytes)
 
 
+def start_dryrun() -> list:
+    """Start the ``meta`` counts in processes of their own (no card: each
+    sees no CUDA device): the ``--all`` sweep and the train phases'
+    predictions. Returns ``[(name, process, log file)]``."""
+    DRYRUN_DIR.mkdir(parents=True, exist_ok=True)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "CUDA_VISIBLE_DEVICES": ""}
+    cmds = {
+        "all": [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+                "--out", str(DRYRUN_DIR / "all.json")],
+        "train": [sys.executable, "-c",
+                  "import chip_smoke; chip_smoke.write_train_predictions("
+                  f"{str(DRYRUN_DIR / 'train.json')!r})"]}
+    jobs = []
+    for name, cmd in cmds.items():
+        fh = open(DRYRUN_DIR / f"{name}.log", "w")
+        jobs.append((name, subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=fh,
+                                            stderr=subprocess.STDOUT), fh))
+    return jobs
+
+
+def stop_dryrun(jobs: list) -> None:
+    for _, proc, fh in jobs:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+        fh.close()
+
+
+def finish_dryrun(jobs: list) -> dict:
+    """Wait for the ``meta`` counts; their JSON by job name."""
+    out = {}
+    for name, proc, fh in jobs:
+        try:
+            rc = proc.wait(timeout=DRYRUN_TIMEOUT_S)
+        finally:
+            stop_dryrun([(name, proc, fh)])
+        if rc != 0:
+            tail = (DRYRUN_DIR / f"{name}.log").read_text()[-3000:]
+            raise AssertionError(f"dry run job {name} exited {rc}:\n{tail}")
+        out[name] = json.loads((DRYRUN_DIR / f"{name}.json").read_text())
+    return out
+
+
+def train_predictions() -> dict:
+    """The train phases' steps counted on ``meta``, float32 as the phases
+    run them, under each of REMAT_MODES: ``{"train" | "encoder": {mode:
+    {peak_bytes, entry_bytes, flops, bytes, k6}}}``."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.specs import train_cell
+    from repro_torch.roofline_hlo import analyze
+    out = {}
+    for tag, arch, B, S in (("train", TRAIN_ARCH, TRAIN_B, TRAIN_S),
+                            ("encoder", ENCODER_ARCH, ENC_TRAIN_B, ENC_S)):
+        out[tag] = {}
+        for mode in REMAT_MODES:
+            cfg = dataclasses.replace(get_config(arch), remat=mode)
+            cell = train_cell(cfg, B, S, param_dtype=torch.float32)
+            acc = analyze(cell.fn, *cell.args)
+            out[tag][mode] = dict(
+                peak_bytes=acc["peak_bytes"], entry_bytes=acc["entry_bytes"],
+                flops=acc["flops"], bytes=acc["bytes"],
+                k6=acc["by_op"]["repro_torch.flash_attention_fwd"]["count"])
+    return out
+
+
+def write_train_predictions(path: str) -> None:
+    pathlib.Path(path).write_text(json.dumps(train_predictions()))
+
+
+def remat_modes(tag: str, cfg, tcfg, state, batch, card: str) -> dict:
+    """The train phase's model under each of REMAT_MODES: the gradients of
+    ``loss_fn`` on ``batch``, every one equal to ``"full"``'s bit for bit
+    (a dense model: the recompute runs the same kernels on the same
+    inputs), K6 launched twice a layer under ``"full"`` and ``"dots"``
+    and once under ``"none"``; then, under each mode, a warm-up step and a
+    timed one, its wall and peak device memory beside the dry run's
+    prediction (the peak above what the step finds allocated, against
+    the predicted peak above the step's inputs: the caller still holds
+    the train state it passed in, whose moments the steps replace)."""
+    from repro_torch.train.step import loss_fn, make_train_step, params_of
+    pred = json.loads((DRYRUN_DIR / "train.json").read_text())[tag]
+    params = params_of(state.model)
+    names = list(params)
+    full = None
+    for mode in REMAT_MODES:
+        want_k6 = cfg.n_layers * (1 if mode == "none" else 2)
+        torch.cuda.synchronize()
+        reset_counts()
+        loss, _ = loss_fn(state.model, batch, remat=mode)
+        g = torch.autograd.grad(loss, [params[n] for n in names],
+                                allow_unused=True)
+        torch.cuda.synchronize()
+        c = read_counts()
+        if c["flash_attention_fwd"] != want_k6 or pred[mode]["k6"] != want_k6:
+            raise AssertionError(f"{tag} gradients under remat {mode}: K6 "
+                                 f"launched {c['flash_attention_fwd']} times"
+                                 f" (the dry run counts {pred[mode]['k6']}),"
+                                 f" not {want_k6}")
+        if full is None:
+            full = g
+        else:
+            differ = [n for n, a, b in zip(names, full, g)
+                      if (a is None) != (b is None)
+                      or (a is not None and not torch.equal(a, b))]
+            if differ:
+                raise AssertionError(f"{tag}: the gradients under remat "
+                                     f"{mode} differ from full's in "
+                                     f"{differ[:4]} ({len(differ)} leaves)")
+        del g, loss
+    del full
+    log(f"[{tag}] remat: the gradients under none and dots equal full's bit "
+        f"for bit in all {len(names)} leaves; K6 launches {cfg.n_layers} "
+        f"(none) and {2 * cfg.n_layers} (full, dots)")
+    out = {}
+    for mode in REMAT_MODES:
+        step = make_train_step(dataclasses.replace(cfg, remat=mode), tcfg)
+        state, _ = step(state, batch)       # warm-up: the allocator grows
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_counts()
+        (state, m), wall = solve(step, state, batch)
+        c = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        p = pred[mode]
+        out[mode] = dict(wall=wall, peak=peak, peak_above=peak - base,
+                         predicted_peak=p["peak_bytes"],
+                         predicted_above=p["peak_bytes"] - p["entry_bytes"],
+                         k6=c["flash_attention_fwd"],
+                         loss=float(m["loss"]))
+        log(f"[{tag}] remat {mode}: train step {wall * 1e3:.2f} ms, K6 "
+            f"{c['flash_attention_fwd']}; peak device memory "
+            f"{peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} above the "
+            f"step's {base / 2**30:.2f}); the dry run predicts "
+            f"{p['peak_bytes'] / 2**30:.2f} GiB "
+            f"({out[mode]['predicted_above'] / 2**30:.2f} above the inputs' "
+            f"{p['entry_bytes'] / 2**30:.2f}); on {card}")
+    return out
+
+
+def dryrun_line(r: dict) -> str:
+    if r["status"] != "ok":
+        return f"{r['arch']}/{r['shape']}: {r['status']} ({r.get('reason')})"
+    fits = "fits" if r["bytes_per_chip"] <= 80e9 else "does not fit"
+    return (f"{r['arch']}/{r['shape']}: flops {r['flops_per_chip']:.4g}, "
+            f"bytes {r['bytes_per_chip_accessed']:.4g}, predicted "
+            f"{r['bytes_per_chip'] / 2**30:.2f} GiB per card ({fits} one "
+            f"80 GB card), t=(c {r['t_compute_ms']:.2f} | m "
+            f"{r['t_memory_ms']:.2f} | x {r['t_collective_ms']:.2f}) ms, "
+            f"bound by {r['bottleneck']}, roofline {r['roofline_frac']:.3f},"
+            f" K6 {r['k6_launches']}, counted in {r['count_s']} s")
+
+
+def last_logits(out) -> torch.Tensor:
+    """A prefill's or decode step's ``(next tokens, ServeState)``: the
+    logits that chose the tokens."""
+    return out[1].logits
+
+
+def k6_alone(cfg, B: int, S: int, card: str) -> dict:
+    """K6 alone at a prefill's shape of ``cfg`` (``B`` x ``S`` tokens,
+    causal, bfloat16, random normal inputs): device ms of one call (3
+    calls profiled) against its bound."""
+    dims = (B, S, S, cfg.n_heads, cfg.n_kv_heads, cfg.dh, cfg.dh)
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda",
+                           dtype=torch.bfloat16)
+               for shape in ((B, S, cfg.n_heads, cfg.dh),
+                             (B, S, cfg.n_kv_heads, cfg.dh),
+                             (B, S, cfg.n_kv_heads, cfg.dh)))
+    t = time_ms(lambda: flash_attention_fwd(q, k, v, causal=True), reps=3,
+                symbol="flash_fwd_")
+    b = flash_bounds(dims, True, torch.bfloat16)
+    log(f"[dryrun] K6 alone at {dims}, causal, bfloat16: {t.ms:.3f} ms "
+        f"({t.source}), bound {b['bound_ms']:.3f} ms by {b['bound_by']} "
+        f"({t.ms / b['bound_ms']:.2f}x); on {card}")
+    return dict(dims=list(dims), ms=t.ms, bound_ms=b["bound_ms"],
+                bound_by=b["bound_by"])
+
+
+def dryrun_on_card(shape: str, batch: int, counts: dict, card: str,
+                   device: str = "cuda") -> dict:
+    """DRYRUN_ARCH's cell at ``batch`` rows, counted on ``meta``, then
+    built on the card (bf16 weights drawn there) and run twice through
+    ``run_cell(device="cuda")``'s count (the warm-up) and once more alone
+    (timed): the card's count equal to the ``meta`` count, the peak device
+    memory of both runs within DRYRUN_PEAK_TOL of the predicted peak,
+    finite logits, K6 launched once a layer in a prefill and never in a
+    decode step (counts set to 0 just before each run, read just after)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.specs import SHAPES
+    cfg = get_config(DRYRUN_ARCH)
+    kind = SHAPES[shape]["kind"]
+    want_k6 = cfg.n_layers if kind == "prefill" else 0
+    meta = run_cell(DRYRUN_ARCH, shape, batch=batch, verbose=False)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counts()
+    t0 = time.perf_counter()
+    got = run_cell(DRYRUN_ARCH, shape, device=device, batch=batch,
+                   verbose=False, keep_output=True)
+    torch.cuda.synchronize()
+    t_counted = time.perf_counter() - t0
+    c_counted = read_counts()
+    if got["status"] != "ok":
+        raise AssertionError(f"dry run {DRYRUN_ARCH}/{shape} on the card: "
+                             f"{got['error']}")
+    peak_counted = torch.cuda.max_memory_allocated() - base
+    cell, out = got.pop("cell"), got.pop("out")
+    finite = bool(torch.isfinite(last_logits(out)).all())
+    del out
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    out, wall = solve(cell.fn, *cell.args)
+    c = read_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    finite = finite and bool(torch.isfinite(last_logits(out)).all())
+    del out, cell
+    counts.setdefault(f"dryrun_{kind}", c)
+    pred = meta["bytes_per_chip"]
+    row = dict(
+        batch=batch, wall=wall, counted_s=t_counted, meta=meta,
+        flops=got["flops_per_chip"], bytes=got["bytes_per_chip_accessed"],
+        card_predicted_peak=got["bytes_per_chip"], predicted_peak=pred,
+        peak=peak, peak_counted=peak_counted, k6=c["flash_attention_fwd"],
+        k6_counted=c_counted["flash_attention_fwd"],
+        t_step=meta["t_step_ms"] / 1e3, bound_by=meta["bottleneck"],
+        share=meta["t_step_ms"] / 1e3 / wall)
+    log(f"[dryrun] {DRYRUN_ARCH}/{shape} on the card, batch {batch}: wall "
+        f"{wall * 1e3:.2f} ms (the counted warm-up with the build "
+        f"{t_counted:.1f} s); roofline {meta['t_step_ms']:.2f} ms bound by "
+        f"{meta['bottleneck']} (c {meta['t_compute_ms']:.2f} | m "
+        f"{meta['t_memory_ms']:.2f} ms), share {row['share']:.3f}; peak "
+        f"{peak / 2**30:.3f} GiB (counted run {peak_counted / 2**30:.3f}) "
+        f"against {pred / 2**30:.3f} predicted ({peak / pred:.3f}x); flops "
+        f"{row['flops']:.6g} and bytes {row['bytes']:.6g} on the card, "
+        f"{meta['flops_per_chip']:.6g} and "
+        f"{meta['bytes_per_chip_accessed']:.6g} on meta; K6 {row['k6']} "
+        f"(counted run {row['k6_counted']}); logits finite {finite}; on "
+        f"{card}")
+    if (row["flops"], row["bytes"]) != (meta["flops_per_chip"],
+                                        meta["bytes_per_chip_accessed"]):
+        raise AssertionError(f"dry run {shape}: the card's count differs "
+                             f"from meta's")
+    for what, p in (("timed", peak), ("counted", peak_counted)):
+        if abs(p / pred - 1) > DRYRUN_PEAK_TOL:
+            raise AssertionError(f"dry run {shape}: the {what} run's peak "
+                                 f"{p} is {p / pred:.3f}x the predicted "
+                                 f"{pred}")
+    if not finite:
+        raise AssertionError(f"dry run {shape}: a logit is not finite")
+    if row["k6"] != want_k6 or row["k6_counted"] != want_k6:
+        raise AssertionError(f"dry run {shape}: K6 launched {row['k6']} and "
+                             f"{row['k6_counted']} times, not {want_k6}")
+    require_not_launched(c, [n for n in c if n not in (
+        "flash_attention_fwd", K3_SWEEPS)], f"dry run {shape}")
+    if kind == "prefill":
+        row["k6_alone"] = k6_alone(cfg, batch, SHAPES[shape]["seq_len"],
+                                   card)
+    return row
+
+
+def phase_dryrun(dev, counts: dict, card: str, jobs: list) -> dict:
+    """The ``meta`` sweep of every arch x shape (``[dryrun]`` line per
+    cell; each ``ok``, or ``skip`` exactly where ``cell_skip_reason`` says
+    so; jamba-v0.1's rows for its card run), then DRYRUN_ARCH's
+    prefill_32k at its global batch and decode_32k at the largest power of
+    two up to its global batch whose predicted peak fits
+    DRYRUN_DECODE_BYTES, each run whole on the card (``dryrun_on_card``)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.dryrun import LM_ARCHS, run_cell
+    from repro_torch.launch.specs import SHAPES, cell_skip_reason
+    res = finish_dryrun(jobs)
+    rows = res["all"]
+    if [(r["arch"], r["shape"]) for r in rows] != [
+            (a, s) for a in LM_ARCHS for s in SHAPES]:
+        raise AssertionError("the dry run's cells are not the 10 archs x 4 "
+                             "shapes")
+    for r in rows:
+        skip = cell_skip_reason(get_config(r["arch"]), r["shape"])
+        log(f"[dryrun] {dryrun_line(r)}")
+        if r["status"] != ("skip" if skip else "ok") or (
+                skip and r["reason"] != skip):
+            raise AssertionError(f"dry run {r['arch']}/{r['shape']}: "
+                                 f"{r['status']} ({r.get('error')}), the "
+                                 f"reference's skip reason {skip}")
+    jamba = {r["shape"]: round(r["bytes_per_chip"] / 2**30, 2)
+             for r in rows if r["arch"] == "jamba-v0.1-52b"}
+    log(f"[dryrun] jamba-v0.1-52b at its full depth, bf16, predicted GiB "
+        f"per card (M9b.3b): {jamba}")
+    shape = SHAPES["decode_32k"]
+    batch = shape["global_batch"]
+    preds = {}
+    while True:
+        r = (rows[[(x["arch"], x["shape"]) for x in rows].index(
+            (DRYRUN_ARCH, "decode_32k"))] if batch == shape["global_batch"]
+            else run_cell(DRYRUN_ARCH, "decode_32k", batch=batch,
+                          verbose=False))
+        preds[batch] = r["bytes_per_chip"]
+        if r["bytes_per_chip"] <= DRYRUN_DECODE_BYTES or batch == 1:
+            break
+        batch //= 2
+    log(f"[dryrun] {DRYRUN_ARCH}/decode_32k predicted GiB by batch "
+        f"{ {b: round(p / 2**30, 2) for b, p in preds.items()} }: batch "
+        f"{batch} on the card")
+    cells = {"prefill_32k": dryrun_on_card(
+        "prefill_32k", SHAPES["prefill_32k"]["global_batch"], counts, card,
+        dev.type),
+        "decode_32k": dryrun_on_card("decode_32k", batch, counts, card,
+                                     dev.type)}
+    return dict(rows=rows, cells=cells, train=res["train"])
+
+
 def timed(walls: dict, name: str, fn, *a, **kw):
     """``fn(*a, **kw)``, its wall in seconds kept as ``walls[name]`` and
     logged."""
@@ -3731,6 +4113,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; this script runs only on the card")
         return 1
+    jobs = start_dryrun()
+    try:
+        return run_smoke(jobs)
+    finally:
+        stop_dryrun(jobs)
+
+
+def run_smoke(jobs: list) -> int:
     from repro_torch.core.maxflow.ref import (maxflow_grid_ref,
                                               random_grid_problem)
     from repro_torch.kernels import _build
@@ -3800,6 +4190,11 @@ def main() -> int:
                                     False, torch.float32)["bound_ms"])
     del enc
     timed(walls, "kvq", phase_kvq, dev, counts, card, float_step)
+    dry = timed(walls, "dryrun", phase_dryrun, dev, counts, card, jobs)
+    pre = dry["cells"]["prefill_32k"]
+    kernels["flash_attention_fwd"]["prefill_32k"] = dict(
+        launches=pre["k6"], wall_ms=pre["wall"] * 1e3, batch=pre["batch"])
+    del dry
     # K1-K3 inside each profiled grid solve, under the wrapper's name
     for name, symbol in (("grid_push_decide", "grid_push_decide_kernel"),
                          ("grid_push_decide_sched",

@@ -125,6 +125,13 @@ def on_card(t) -> bool:
     raise ValueError(f"no kernel or plain version for device {t.device}")
 
 
+def card_branch(t) -> bool:
+    """``on_card``, but True also for a ``meta`` tensor, which describes the
+    card's work without doing it (the dry run): for wrappers whose kernel
+    is one op with a ``meta`` version (K6)."""
+    return t.device.type == "meta" or on_card(t)
+
+
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     """Raise if a C entry point of ``lib`` reported a CUDA error."""
     if code != 0:

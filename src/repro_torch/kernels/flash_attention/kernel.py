@@ -12,6 +12,13 @@ tracks an input on the card, the wrapper goes through the attention's
 autograd Function (``repro_torch.models.attention.flash_core``), whose
 forward is this kernel and whose backward is plain PyTorch, as the JAX
 package's ``_flash_core_bwd`` is plain XLA.
+
+The launch is one custom op, ``torch.ops.repro_torch.flash_attention_fwd``,
+so that a dispatch mode (``repro_torch.roofline_hlo.analyze``) sees it
+as one op: its CUDA version launches the kernel, its ``meta`` version
+only makes the outputs' shapes (the dry run counts the card's work on
+``meta`` tensors, which take the card's branch here), and its flop
+formula is K6's count in ``repro_torch.roofline``.
 """
 from __future__ import annotations
 
@@ -20,9 +27,11 @@ import math
 from typing import NamedTuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.roofline import flash_attention_work
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _PROTOS = {"flash_attention_fwd": [_P] * 5 + [_I] * 8
@@ -137,7 +146,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
     scale = dh ** -0.5 if scale is None else float(scale)
-    if not _build.on_card(q):
+    if not _build.card_branch(q):
         return flash_attention_ref(q, k, v, causal=causal, scale=scale,
                                    return_lse=return_lse)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
@@ -150,19 +159,54 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
             raise ValueError(f"{name} must be contiguous")
     if Sq > GRID_Y_MAX * BLOCK_Q:
         raise ValueError(f"Sq={Sq}: at most {GRID_Y_MAX * BLOCK_Q} queries")
-    out = torch.empty((B, Sq, H, dv), dtype=q.dtype, device=q.device)
-    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-           if return_lse else None)
+    out, lse = torch.ops.repro_torch.flash_attention_fwd(
+        q, k, v, causal, scale, return_lse)
+    return (out, lse) if return_lse else out
+
+
+def _out_shapes(q, v, return_lse: bool):
+    B, Sq, H, _ = q.shape
+    return (B, Sq, H, v.shape[-1]), ((B, H, Sq) if return_lse else (0,))
+
+
+@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=(),
+                         device_types="cuda")
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            scale: float, return_lse: bool) -> tuple[torch.Tensor,
+                                                     torch.Tensor]:
+    """One launch of K6 on checked, contiguous CUDA inputs: ``(out,
+    lse)``, ``lse`` empty unless ``return_lse``."""
+    B, Sq, H, dh = q.shape
+    Sk, KV, dv = k.shape[1], k.shape[2], v.shape[-1]
+    o_shape, l_shape = _out_shapes(q, v, return_lse)
+    out = torch.empty(o_shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty(l_shape, dtype=torch.float32, device=q.device)
     args = launch_geometry(B, Sq, H, dh, dv, q.dtype).c_args()
     lib = _build.load("flash_attention", _PROTOS)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _build.check(lib, lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(), B, Sq, Sk, H, KV, dh, dv,
+        lse.data_ptr() if return_lse else None, B, Sq, Sk, H, KV, dh, dv,
         int(q.dtype == torch.bfloat16), scale, int(causal),
         (ctypes.c_int * len(args))(*args), stream), "flash_attention_fwd")
     flash_attention_fwd.launches += 1
-    return (out, lse) if return_lse else out
+    return out, lse
+
+
+@_launch.register_fake
+def _launch_meta(q, k, v, causal, scale, return_lse):
+    o_shape, l_shape = _out_shapes(q, v, return_lse)
+    return (q.new_empty(o_shape),
+            q.new_empty(l_shape, dtype=torch.float32))
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
+def _flops(q_shape, k_shape, v_shape, causal, scale, return_lse, *,
+           out_shape=None, **kw) -> int:
+    B, Sq, H, dh = q_shape
+    Sk, KV, dv = k_shape[1], k_shape[2], v_shape[-1]
+    return flash_attention_work(B, Sq, Sk, H, KV, dh, dv, causal=causal,
+                                itemsize=1)[1]
 
 
 flash_attention_fwd.launches = 0

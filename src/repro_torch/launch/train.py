@@ -10,7 +10,8 @@ Counterpart of ``repro/launch/train.py``: its arguments and report lines
 ``[preempt]``, ``[watchdog]``), random weights from ``--seed`` (a torch
 generator, so not the JAX CLI's numbers), the data pipeline's rows from
 ``--seed``. Runs on the card unless ``--device cpu`` is given. One card
-has no mesh: ``--model-parallel`` other than 1 raises (ROADMAP M9b.7).
+has no mesh: ``--model-parallel`` other than 1 raises (ROADMAP M9b.8).
+The step follows the config's ``remat``, as the reference's does.
 ``--n-layers`` keeps the config's widths and takes that many layers, as
 in ``launch/serve.py``. The train state (parameters, moments, step) is
 saved and restored through ``checkpoint/store.py``; a resumed run goes on
@@ -62,8 +63,9 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     if args.model_parallel != 1:
-        raise SystemExit("--model-parallel: the port trains on one card; "
-                         "sharding a model over cards is ROADMAP M9b.7")
+        raise SystemExit("--model-parallel: the port trains on one card "
+                         "(its dry run, ROADMAP M9b.7, counts one card); "
+                         "sharding a model over cards is ROADMAP M9b.8")
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_variant(cfg)

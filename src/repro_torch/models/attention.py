@@ -215,7 +215,7 @@ class _FlashCore(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, scale: float, chunk: int):
-        ctx.on_card = _build.on_card(q)
+        ctx.on_card = _build.card_branch(q)
         if ctx.on_card:     # K6's output itself is the residual
             out, lse = flash_attention_op(q, k, v, causal=causal,
                                           scale=scale, return_lse=True)
@@ -266,7 +266,7 @@ def _flash_attend(q, k, v, *, causal: bool, scale: float, chunk: int):
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _FlashCore.apply(q, k, v, causal, scale, chunk)[0]
-    if _build.on_card(q):
+    if _build.card_branch(q):
         return flash_attention_op(q, k, v, causal=causal, scale=scale)
     out, _ = _flash_fwd_scan(q, k, v, causal, scale, chunk)
     return out.transpose(1, 2).to(q.dtype)

@@ -8,8 +8,16 @@ JAX package's ``prefix[i]`` for ``i < n_dense_prefix`` and otherwise
 ``body["sub{j}"]`` at period ``r``, ``i = n_dense_prefix + r * period + j``
 (``repro_torch.interop.load_params`` carries weights across that way).
 ``cfg.remat`` changes only what training keeps for the backward pass,
-never a value; the port's trainer (``train/step.py``) leaves it out and
-keeps every activation (ROADMAP §2b).
+never a value. Where gradients are enabled and there are no caches,
+``apply_model`` runs each period of the layer plan after the dense
+prefix (the reference's scanned ``body_fn``; the prefix lies outside
+it) under ``torch.utils.checkpoint`` (non-reentrant): ``"full"`` keeps
+nothing inside a period and recomputes it in the backward pass
+(``nothing_saveable``), ``"dots"`` keeps the outputs of ``aten.mm`` and
+``aten.addmm``, the matmuls without batch dimensions, and recomputes the
+rest (``checkpoint_dots_with_no_batch_dims``), ``"none"`` keeps every
+activation. The recompute runs ``_FlashCore``'s forward again, so K6
+launches twice a layer under ``"full"`` and ``"dots"``.
 
 Runs the dense and token-input families (smollm-135m, chameleon-34b,
 command-r-plus-104b, minitron-8b, nemotron-4-340b), the MoE family
@@ -36,12 +44,15 @@ float32 scales, ``models.attention``).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, NamedTuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -186,16 +197,48 @@ class ModelOutput(NamedTuple):
     caches: Any
 
 
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, func, *args, **kwargs):
+    """``"dots"``: keep the matmuls without batch dimensions."""
+    return (CheckpointPolicy.MUST_SAVE if func in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _run_blocks(blocks, x, positions):
+    for block in blocks:
+        x, _ = block(x, positions=positions, cache=None, decode=False)
+    return x
+
+
+def _remat_blocks(blocks, x, positions, remat: str):
+    """One period of the layer plan under ``torch.utils.checkpoint``. No
+    RNG state is kept: no layer draws random numbers."""
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+    elif remat != "full":
+        raise ValueError(f"remat {remat!r}: one of full, dots, none")
+    return checkpoint(_run_blocks, blocks, x, positions, use_reentrant=False,
+                      preserve_rng_state=False, **kw)
+
+
 def apply_model(model: Model, batch, *, caches=None, decode: bool = False,
-                pos_offset=0, logits_mode: str = "all") -> ModelOutput:
+                pos_offset=0, logits_mode: str = "all",
+                remat: str | None = None) -> ModelOutput:
     """batch: ``{"tokens": (B, S) int}``, or ``{"embeds": (B, S,
     frontend_dim)}`` where the config has a frontend. ``caches``:
     ``init_caches``'s list (one ``KVCache``, ``KVCacheQ`` or ``SSMCache``
     per layer) or None. ``pos_offset`` may be an int or a 0-d tensor on
-    the model's device (the decode position). Returns the logits ``(B, S,
-    vocab)`` (``logits_mode="last"``: ``(B, 1, vocab)``) and the new
-    caches (None without caches)."""
+    the model's device (the decode position). ``remat`` (default
+    ``cfg.remat``) applies where gradients are enabled and ``caches`` is
+    None (see the module docstring). Returns the logits ``(B, S, vocab)``
+    (``logits_mode="last"``: ``(B, 1, vocab)``) and the new caches (None
+    without caches)."""
     cfg = model.cfg
+    remat = cfg.remat if remat is None else remat
     if cfg.frontend_dim:
         x = model.frontend(batch["embeds"].to(model.frontend.weight.dtype))
     else:
@@ -205,11 +248,19 @@ def apply_model(model: Model, batch, *, caches=None, decode: bool = False,
     if not cfg.causal and not cfg.rope_theta:
         x = x + sinusoidal_pos(positions, cfg.d_model)[None].to(x.dtype)
     new_caches = []
-    for i, block in enumerate(model.layers):
-        x, nc = block(x, positions=positions,
-                      cache=caches[i] if caches is not None else None,
-                      decode=decode)
-        new_caches.append(nc)
+    if remat != "none" and caches is None and torch.is_grad_enabled():
+        layers = list(model.layers)
+        x = _run_blocks(layers[:cfg.n_dense_prefix], x, positions)
+        period = plan_period(cfg)
+        for start in range(cfg.n_dense_prefix, cfg.n_layers, period):
+            x = _remat_blocks(layers[start:start + period], x, positions,
+                              remat)
+    else:
+        for i, block in enumerate(model.layers):
+            x, nc = block(x, positions=positions,
+                          cache=caches[i] if caches is not None else None,
+                          decode=decode)
+            new_caches.append(nc)
     x = model.final_norm(x)
     if logits_mode == "last":
         x = x[:, -1:]

@@ -8,10 +8,12 @@ no ``axes`` and no ``Sharder``; gradients come from ``torch.autograd``
 (through ``models.attention._FlashCore`` in the attention, K6 forward on
 the card and the plain backward).
 
-The reference's ``cfg.remat`` (``jax.checkpoint`` of the scanned body)
-changes what the backward pass keeps, never a value. The port leaves it
-out: every activation is kept, so one card trains only what fits without
-it (ROADMAP §2b).
+The step follows ``cfg.remat`` of the config it is made for, as the
+reference's ``jax.checkpoint`` of the scanned body: ``"full"`` (every
+config's default) recomputes each period of the layer plan in the
+backward pass, ``"dots"`` keeps its matmuls without batch dimensions,
+``"none"`` keeps every activation (``models/model.py``). It changes what
+the backward pass keeps and how much it recomputes, never a value.
 """
 from __future__ import annotations
 
@@ -48,11 +50,13 @@ def params_of(model: Model) -> dict:
     return dict(model.named_parameters())
 
 
-def loss_fn(model: Model, batch, z_loss: float = 1e-4):
+def loss_fn(model: Model, batch, z_loss: float = 1e-4,
+            remat: str | None = None):
     """Mean token cross entropy (+ z-loss) over ``batch["labels"]``,
-    weighted by ``batch["mask"]`` where given. Returns ``(loss, {"loss",
+    weighted by ``batch["mask"]`` where given, the model run with
+    ``remat`` (default its ``cfg.remat``). Returns ``(loss, {"loss",
     "tokens"})``."""
-    out = apply_model(model, batch)
+    out = apply_model(model, batch, remat=remat)
     labels = batch["labels"]
     per_tok = softmax_cross_entropy(out.logits, labels, z_loss=z_loss)
     mask = batch.get("mask")
@@ -70,11 +74,13 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
     to ``grad_dtype``, and one ``apply_updates``. Metrics: ``loss``,
     ``tokens`` (0 with microbatches, as the reference), ``lr``,
     ``grad_norm``, as tensors. A parameter the loss does not reach (an
-    encoder's ``embed``) gets a zero gradient, as ``jax.grad`` gives."""
+    encoder's ``embed``) gets a zero gradient, as ``jax.grad`` gives. The
+    model runs with ``cfg.remat``."""
     gdt = GRAD_DTYPES[tcfg.grad_dtype]
 
     def grads_of(params: dict, model: Model, batch):
-        loss, aux = loss_fn(model, batch, z_loss=tcfg.z_loss)
+        loss, aux = loss_fn(model, batch, z_loss=tcfg.z_loss,
+                            remat=cfg.remat)
         g = torch.autograd.grad(loss, list(params.values()),
                                 allow_unused=True)
         g = {n: torch.zeros_like(p) if x is None else x

@@ -50,6 +50,8 @@ def test_import_pulls_in_neither_jax_nor_repro():
         "import repro_torch.optim.adamw, repro_torch.train.step\n"
         "import repro_torch.data.pipeline, repro_torch.runtime.ft\n"
         "import repro_torch.launch.train\n"
+        "import repro_torch.roofline, repro_torch.roofline_hlo\n"
+        "import repro_torch.launch.specs, repro_torch.launch.dryrun\n"
         "from repro_torch.core.kinds import get_kind, registered_kinds\n"
         "assert get_kind('matching').name == 'matching'\n"
         "assert registered_kinds() == ('maxflow', 'assignment', 'matching')\n"

@@ -935,10 +935,11 @@ def test_k6_grads_close_to_cpu(cuda_device, dims, causal, dtype):
 
 def test_train_step_on_card_close_to_cpu(cuda_device):
     """smollm-135m at smoke size: the loss and every gradient of
-    ``loss_fn`` on the card (K6 forward once per layer, the plain
-    backward) against the CPU path's within 1e-4 x each leaf's largest
-    |g| (float32 both, other summation orders), and one step of
-    ``make_train_step`` launching K6 once per layer."""
+    ``loss_fn`` on the card (K6 forward twice per layer: the forward and
+    the config's remat ``"full"`` recompute; the plain backward) against
+    the CPU path's within 1e-4 x each leaf's largest |g| (float32 both,
+    other summation orders), and one step of ``make_train_step``
+    launching K6 twice per layer."""
     from repro_torch.data.pipeline import DataConfig, make_batch
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train import step as tstep
@@ -954,7 +955,7 @@ def test_train_step_on_card_close_to_cpu(cuda_device):
         ps = tstep.params_of(model)
         g = torch.autograd.grad(loss, list(ps.values()))
         assert fak.flash_attention_fwd.launches - before == (
-            cfg.n_layers if dev.type == "cuda" else 0)
+            2 * cfg.n_layers if dev.type == "cuda" else 0)
         out[dev.type] = (float(loss), [x.cpu() for x in g])
         if dev.type == "cuda":
             tcfg = tstep.TrainConfig(optimizer=AdamWConfig(warmup_steps=2))
@@ -962,7 +963,8 @@ def test_train_step_on_card_close_to_cpu(cuda_device):
             before = fak.flash_attention_fwd.launches
             tstep.make_train_step(cfg, tcfg)(state, batch)
             torch.cuda.synchronize()
-            assert fak.flash_attention_fwd.launches - before == cfg.n_layers
+            assert (fak.flash_attention_fwd.launches - before
+                    == 2 * cfg.n_layers)
     (la, ga), (lb, gb) = out["cuda"], out["cpu"]
     assert abs(la - lb) <= 1e-5 * abs(lb)
     for a, b in zip(ga, gb):
@@ -973,7 +975,8 @@ def test_encoder_train_step_on_card_close_to_cpu(cuda_device):
     """hubert-xlarge's smoke variant (the frontend, sinusoidal positions,
     non-causal MHA of 32, LayerNorm, GELU) on the pipeline's frame rows:
     the loss and every gradient of ``loss_fn`` on the card (K6 forward,
-    non-causal, once per layer) against the CPU path's within 1e-4 x each
+    non-causal, twice per layer: the forward and the config's remat
+    ``"full"`` recompute) against the CPU path's within 1e-4 x each
     leaf's largest |g|, ``embed``'s exactly zero on both, and its encoder
     forward under ``torch.inference_mode`` launching K6 once per layer
     within 1e-4 x the CPU's largest |logit|."""
@@ -995,7 +998,7 @@ def test_encoder_train_step_on_card_close_to_cpu(cuda_device):
         with torch.inference_mode():
             logits = apply_model(model, {"embeds": batch["embeds"]}).logits
         assert fak.flash_attention_fwd.launches - before == (
-            2 * cfg.n_layers if dev.type == "cuda" else 0)
+            3 * cfg.n_layers if dev.type == "cuda" else 0)
         out[dev.type] = (float(loss), [x.cpu() for x in g if x is not None],
                          logits.cpu())
     (la, ga, xa), (lb, gb, xb) = out["cuda"], out["cpu"]
@@ -1178,3 +1181,63 @@ def test_mla_stop_rule_on_committed_constants(cuda_device):
         assert stops == [0] * chip_smoke.SERVE_B, why
     stable = dict(z, prefill_unstable=np.zeros_like(z["prefill_unstable"]))
     assert min(chip_smoke.moe_stops(stable)[0]) > 0
+
+
+def _smoke_cells(device):
+    """smollm-135m's smoke variant, bf16: a train step of 2 x 256 tokens
+    and a prefill of 2 x 256 into empty caches, built on ``device``."""
+    from repro_torch.launch.specs import build_model, train_cell
+    from repro_torch.models.model import init_caches
+    from repro_torch.serve.engine import make_prefill_step
+    cfg = smoke_variant(get_config("smollm-135m"))
+    train = train_cell(cfg, 2, 256, device=device)
+    model = build_model(cfg, device, torch.bfloat16)
+    prefill = make_prefill_step(model)
+    tokens = torch.zeros((2, 256), dtype=torch.int32, device=device)
+    caches = init_caches(cfg, 2, 256, device=device)
+    return {"train": (train.fn, train.args),
+            "prefill": (lambda m, t, c: prefill(t, c),
+                        (model, tokens, caches))}
+
+
+def test_meta_count_equals_card_count(cuda_device):
+    """The dry run's ``meta`` count of a step is the card's: the same ops,
+    K6 one op with the same count, at smoke width."""
+    from repro_torch.roofline_hlo import analyze
+    meta, card = _smoke_cells("meta"), _smoke_cells(cuda_device)
+    for name in meta:
+        want = analyze(meta[name][0], *meta[name][1])
+        before = fak.flash_attention_fwd.launches
+        got = analyze(card[name][0], *card[name][1])
+        torch.cuda.synchronize()
+        k6 = want["by_op"]["repro_torch.flash_attention_fwd"]["count"]
+        assert fak.flash_attention_fwd.launches - before == k6 > 0, name
+        assert (got["flops"], got["bytes"]) == (want["flops"],
+                                                want["bytes"]), name
+        assert got["peak_bytes"] == want["peak_bytes"], name
+
+
+def test_remat_full_equals_none_on_card(cuda_device):
+    """smollm-135m's smoke variant on the card, float32: the gradients
+    under remat ``"full"`` and ``"dots"`` equal ``"none"``'s bit for bit,
+    K6 launched twice a layer under the first two and once under
+    ``"none"``."""
+    from repro_torch.train.step import loss_fn, params_of
+    cfg = smoke_variant(get_config("smollm-135m"))
+    model = model_from_params(cfg, numpy_params(cfg, 0), device=cuda_device)
+    rng = np.random.default_rng(0)
+    batch = {k: torch.tensor(rng.integers(0, cfg.vocab, (2, 128)),
+                             dtype=torch.int32, device=cuda_device)
+             for k in ("tokens", "labels")}
+    ps = params_of(model)
+    grads = {}
+    for mode in ("none", "full", "dots"):
+        before = fak.flash_attention_fwd.launches
+        loss, _ = loss_fn(model, batch, remat=mode)
+        grads[mode] = torch.autograd.grad(loss, list(ps.values()))
+        torch.cuda.synchronize()
+        assert fak.flash_attention_fwd.launches - before == cfg.n_layers * (
+            1 if mode == "none" else 2), mode
+    for mode in ("full", "dots"):
+        assert all(torch.equal(a, b)
+                   for a, b in zip(grads[mode], grads["none"])), mode
