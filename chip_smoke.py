@@ -243,8 +243,29 @@ Drives ``src/repro_torch`` only (no ``jax``, nothing of ``repro``):
    logits, K6 once per layer in the prefill and never in decode; the
    wall against the roofline time, and K6 alone at the prefill's shape.
 
+19. drives the model meshes (``phase_mesh``, ROADMAP M9b.8, before the
+   dry run) with ranks of one process group that share the card over gloo
+   (``launch.mesh.spawn``; each rank builds its blocks of the model with
+   ``models.model.shard_model``, a server in its serving placement
+   (``fsdp=False``), and sets its launch counts to 0 just before the
+   path and reads them just after), three runs at once: smollm-135m at
+   full width and depth on ``numpy_params`` weights served on 1 x 3
+   ranks (8 x 1024 prompts, 16 new tokens; every step's logits within
+   ``check_serve``'s rule of the single-rank port's, each rank launching
+   K6 once per layer on its 3 of the 9 heads in each prefill),
+   phi3.5-moe at full width and MOE_LAYERS layers served on 2 x 2 (its
+   routing held bit for bit to a single rank routing as 2 data ranks,
+   ``grouped_sharder(2)``, on the mesh's gate logits, and its logits to
+   that run's under ``check_serve``'s rule), and smollm-135m trained on
+   2 x 3 for MESH_TRAIN_STEPS steps of 8 x 1024 tokens under remat
+   ``"full"`` (loss and grad_norm within the train check's tolerances of
+   the single-rank step's on the same weights and rows; K6 twice per
+   layer per step on every rank); each rank's reckoned bytes are logged
+   first (``[mesh]`` lines). A rank that fails, or any mismatch, fails
+   the run.
+
 The phases' walls are logged on one ``[walls]`` line at the end
-(``train``, ``encoder``, ``kvq`` and ``dryrun`` among them).
+(``train``, ``encoder``, ``kvq``, ``mesh`` and ``dryrun`` among them).
 
 Prints one JSON line per kernel summary, the ``nvidia-smi`` name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero
@@ -256,6 +277,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import pathlib
 import subprocess
@@ -523,6 +545,20 @@ DRYRUN_DECODE_BYTES = 60 * 2 ** 30
 DRYRUN_PEAK_TOL = 0.15
 DRYRUN_TIMEOUT_S = 900
 REMAT_MODES = ("full", "none", "dots")
+# the model-parallel path (ROADMAP M9b.8): ranks of one process group that
+# share the one card (gloo over CUDA tensors, launch.mesh.mesh_backend),
+# started by launch.mesh.spawn; (data, model) per run. smollm-135m served
+# on 1 x 3 (3 of its 9 q heads, 1 of its 3 kv heads, 512 of its 1536
+# hidden units and 16,384 of its 49,152 vocabulary ids a rank) and trained
+# on 2 x 3 (4 of the 8 rows a data rank) for MESH_TRAIN_STEPS steps;
+# phi3.5-moe at MOE_LAYERS layers served on 2 x 2 (8 of its 16 experts a
+# rank). Each held to the single-rank port on the card: serving under
+# check_serve's rule, training within TRAIN_LOSS_TOL / TRAIN_NORM_TOL,
+# phi's routing bit for bit with a single rank routing as 2 data ranks
+# (grouped_sharder(2)) on the mesh's gate logits. Results in MESH_DIR
+MESH_DIR = ROOT / "build" / "mesh"
+MESH_SERVE, MESH_TRAIN, MESH_MOE = (1, 3), (2, 3), (2, 2)
+MESH_TRAIN_STEPS = 2
 # K6's bounds (ms) at the smoke's shapes, from the formula chip_smoke.py
 # held before repro_torch.roofline took it over: (B, Sq, Sk, H, KV, dh,
 # dv), causal, dtype -- serve (float32, bfloat16), phi, deepseek, hubert's
@@ -2644,7 +2680,10 @@ def port_serve(model, prompts: torch.Tensor, max_new: int, S_max: int):
     dev = prompts.device
     sync = torch.cuda.synchronize if dev.type == "cuda" else lambda: None
     B = prompts.shape[0]
-    caches = init_caches(model.cfg, B, S_max, dtype=torch.float32, device=dev)
+    if model.shd.mesh is not None:      # this rank's rows of the batch
+        B *= model.shd.data_groups
+    caches = init_caches(model.cfg, B, S_max, dtype=torch.float32, device=dev,
+                         shd=model.shd)
     prefill, step = make_prefill_step(model), make_serve_step(model)
     sync()
     reset_counts()
@@ -2790,18 +2829,20 @@ def phase_serve(dev, counts: dict) -> dict:
 
 
 @contextlib.contextmanager
-def record_routing():
+def record_routing(scores: bool = False):
     """Wrap the port's MoE routers where ``models.mlp`` calls them: every
     call appends ``(router name, capacity, dispatch)`` (the dispatch a copy
-    on the device) to the yielded list, in call order."""
+    on the device; with ``scores`` also the scores routed) to the yielded
+    list, in call order."""
     from repro_torch.models import mlp
     seen = []
     originals = {n: getattr(mlp, n) for n in ("auction_route", "topk_route")}
 
     def spy(name):
-        def route(scores, k, capacity, **kw):
-            r = originals[name](scores, k, capacity, **kw)
-            seen.append((name, capacity, r.dispatch.clone()))
+        def route(s, k, capacity, **kw):
+            r = originals[name](s, k, capacity, **kw)
+            seen.append((name, capacity, r.dispatch.clone())
+                        + ((s.clone(),) if scores else ()))
             return r
         return route
     try:
@@ -4092,6 +4133,447 @@ def phase_dryrun(dev, counts: dict, card: str, jobs: list) -> dict:
     return dict(rows=rows, cells=cells, train=res["train"])
 
 
+# ---------------------------------------------------------------------------
+# The model-parallel path: ranks on the one card
+# ---------------------------------------------------------------------------
+
+def mesh_bytes(cfg, mesh: tuple, train: bool) -> dict:
+    """Each rank's reckoned bytes (float32): its blocks of the parameters
+    (``Sharder.spec`` of every leaf on a ``mesh`` of (data, model); a
+    server's in the serving placement, ``shard_model(fsdp=False)``, whole
+    over data), and in training the largest layer's blocks made whole
+    over data (FSDP gathers one layer at a time), the gradients (blocks)
+    and the AdamW moments (whole on every rank, as the reference's
+    launcher places them)."""
+    import types
+
+    from repro_torch.launch.specs import model_axes
+    from repro_torch.models.layers import Sharder
+    from repro_torch.models.model import Model
+    sizes = dict(zip(("data", "model"), mesh))
+    shd = Sharder(types.SimpleNamespace(mesh_dim_names=tuple(sizes),
+                                        shape=mesh))
+    axes = model_axes(cfg)
+    blocks, layers, n_all = 0, {}, 0
+    for name, p in Model(cfg, device="meta").named_parameters():
+        spec = shd.spec(p.shape, axes[name] if train else tuple(
+            None if a == "fsdp" else a for a in axes[name]))
+        n = p.numel() // math.prod(sizes[e] for e in spec if e)
+        blocks += 4 * n
+        w = 4 * n * (sizes["data"] if "data" in spec else 1)
+        key = name.split(".")[1] if name.startswith("layers.") else name
+        layers[key] = layers.get(key, 0) + w
+        n_all += p.numel()
+    out = dict(param_blocks=blocks)
+    if train:
+        out.update(layer_whole=max(layers.values()), grads=blocks,
+                   moments=2 * 4 * n_all)
+    out["total"] = sum(out.values())
+    return out
+
+
+def mesh_rank(rank: int, world: int, job: dict) -> None:
+    """One rank of a ``phase_mesh`` run (started by ``launch.mesh.spawn``):
+    builds its blocks of the model, drives the path through the port's
+    entry points with its launch counts set to 0 just before and read just
+    after, and saves what it got to ``MESH_DIR/{job}.{rank}.pt``."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.layers import Sharder
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    shd = Sharder(make_host_mesh(job["mesh"][1]))
+    got = {"rank": rank, "data": shd.axis("data").index,
+           "model": shd.axis("model").index}
+    t0 = time.perf_counter()
+    if job["kind"] == "serve":
+        model = mesh_serve_model(job, shd, dev)
+        got["build_s"] = time.perf_counter() - t0
+        # phi is drawn whole on the card: the build's peak apart
+        got["build_peak"] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        prompts = shd.batch_rows(torch.tensor(
+            serve_prompts(model.cfg.vocab), device=dev))
+        with record_routing(scores=True) as seen:
+            steps, t_pre, t_steps, c_pre, c_steps, _ = port_serve(
+                model, prompts, SERVE_NEW, SERVE_S + SERVE_NEW)
+        got.update(steps=steps, t_prefill=t_pre, t_steps=t_steps,
+                   c_prefill=c_pre, c_steps=c_steps,
+                   routing=[(n, c, d.cpu(), sc.cpu())
+                            for n, c, d, sc in seen],
+                   peak=torch.cuda.max_memory_allocated())
+    else:
+        got.update(mesh_train(shd, dev))
+    MESH_DIR.mkdir(parents=True, exist_ok=True)
+    torch.save(got, MESH_DIR / f"{job['name']}.{rank}.pt")
+
+
+def smollm_weights() -> pathlib.Path:
+    """smollm-135m's ``numpy_params`` weights (as ``phase_serve``'s) saved
+    once for the ranks, which load them (memory-mapped) in place of drawing
+    135 M numbers each."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.interop import model_from_params, numpy_params
+    cfg = get_config(SERVE_ARCH)
+    path = MESH_DIR / "smollm-135m.pt"
+    MESH_DIR.mkdir(parents=True, exist_ok=True)
+    torch.save(model_from_params(cfg, numpy_params(cfg, SEED),
+                                 device="cpu").state_dict(), path)
+    return path
+
+
+def smollm_placed(shd, dev, fsdp: bool = True):
+    """smollm-135m on ``smollm_weights``, this rank's blocks on ``dev``
+    (the whole model without a mesh; ``fsdp=False``: the serving
+    placement)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import Model, shard_model
+    model = Model(get_config(SERVE_ARCH), device="cpu")
+    model.load_state_dict(torch.load(MESH_DIR / "smollm-135m.pt",
+                                     mmap=True, weights_only=True))
+    if shd.mesh is None:
+        return model.to(dev)
+    return shard_model(model, shd, device=dev, fsdp=fsdp)
+
+
+def mesh_serve_model(job: dict, shd, dev):
+    """smollm-135m from ``numpy_params`` (as ``phase_serve``), or
+    phi3.5-moe at MOE_LAYERS layers drawn on the card from a generator of
+    SEED (the single-rank reference draws the same), placed on ``shd`` in
+    the serving placement (``shard_model(fsdp=False)``: split over model,
+    whole over data): the ranks take turns building the whole model and
+    keeping their blocks, so the card holds one whole model at a time."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import init_model, shard_model
+    if job["arch"] == SERVE_ARCH:
+        return smollm_placed(shd, dev, fsdp=False)
+    import torch.distributed as dist
+    cfg = moe_config(get_config(MOE_ARCH))
+    model = None
+    for turn in range(shd.mesh.size()):
+        if turn == dist.get_rank():
+            model = shard_model(init_model(
+                cfg, torch.Generator(device=dev).manual_seed(SEED),
+                device=dev), shd, fsdp=False)
+            torch.cuda.empty_cache()
+        shd.barrier()
+    return model
+
+
+def mesh_train_setup():
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import TrainConfig
+    cfg = get_config(TRAIN_ARCH)
+    tcfg = TrainConfig(optimizer=AdamWConfig(
+        lr_peak=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+        decay_steps=TRAIN_STEPS))
+    return cfg, tcfg, DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S,
+                                 global_batch=TRAIN_B, seed=SEED)
+
+
+def mesh_train(shd, dev) -> dict:
+    """MESH_TRAIN_STEPS steps of ``make_train_step`` (remat ``"full"``, as
+    ``phase_train``) on smollm-135m from ``numpy_params`` and the
+    ``make_batch`` rows of each step, this rank's rows of them (all of
+    them without a mesh). Returns the metrics, walls and counts."""
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.train.step import init_train_state, make_train_step
+    cfg, tcfg, dcfg = mesh_train_setup()
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, tcfg, smollm_placed(shd, dev))
+    fn = make_train_step(cfg, tcfg)
+    out = {"metrics": [], "walls": [], "counts": [],
+           "build_s": time.perf_counter() - t0}
+    for step in range(MESH_TRAIN_STEPS):
+        batch = {k: shd.batch_rows(x)
+                 for k, x in make_batch(dcfg, step, dev).items()}
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        state, m = fn(state, batch)
+        torch.cuda.synchronize()
+        out["walls"].append(time.perf_counter() - t0)
+        out["counts"].append(read_counts())
+        out["metrics"].append({k: float(v) for k, v in m.items()})
+    out["peak"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def mesh_run(name: str, kind: str, arch: str, mesh: tuple) -> list:
+    """Start ``prod(mesh)`` ranks for one run and read back each rank's
+    result (a rank that fails fails the run: ``spawn`` raises)."""
+    from repro_torch.launch.mesh import mesh_backend, spawn
+    world = mesh[0] * mesh[1]
+    for f in MESH_DIR.glob(f"{name}.*.pt"):
+        f.unlink()
+    t0 = time.perf_counter()
+    spawn(mesh_rank, world, dict(name=name, kind=kind, arch=arch, mesh=mesh),
+          device="cuda")
+    wall = time.perf_counter() - t0
+    got = [torch.load(MESH_DIR / f"{name}.{r}.pt", weights_only=False)
+           for r in range(world)]
+    build = [g["build_peak"] for g in got if "build_peak" in g]
+    log(f"[mesh] {name}: {world} ranks on {mesh[0]} x {mesh[1]} over "
+        f"{mesh_backend(world, 'cuda')}, {wall:.1f} s from start to end "
+        f"(each rank's build {max(g['build_s'] for g in got):.1f} s at "
+        f"most, peak device memory per rank "
+        f"{max(g['peak'] for g in got) / 2**30:.2f} GiB"
+        + (f", {max(build) / 2**30:.2f} GiB while building" if build
+           else "") + ")")
+    return got
+
+
+def mesh_runs_together(*runs) -> list:
+    """``mesh_run`` of each of ``runs`` (its arguments), all at once (one
+    thread each; their ranks share the card); a run that fails fails the
+    phase once all have ended."""
+    import threading
+    got, errors = [None] * len(runs), []
+
+    def go(i, args):
+        try:
+            got[i] = mesh_run(*args)
+        except BaseException as e:      # re-raised below, after the join
+            errors.append(e)
+    threads = [threading.Thread(target=go, args=(i, a))
+               for i, a in enumerate(runs)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return got
+
+
+def mesh_k6(got: list, name: str, n_layers: int, counts: dict, key: str):
+    """Every rank launched K6 once per layer in its prefill (on its heads)
+    and nothing in decode; the launches go to ``counts[key]``."""
+    for g in got:
+        c = g["c_prefill"]
+        if c["flash_attention_fwd"] != n_layers:
+            raise AssertionError(f"{name} rank {g['rank']}: K6 launched "
+                                 f"{c['flash_attention_fwd']} times in the "
+                                 f"prefill, not once per layer ({n_layers})")
+        require_not_launched(c, [n for n in c if n != "flash_attention_fwd"],
+                             f"{name} prefill")
+        for cs in g["c_steps"]:
+            require_not_launched(cs, list(cs), f"{name} decode step")
+    counts[key] = {n: sum(g["c_prefill"][n] for g in got)
+                   for n in got[0]["c_prefill"]}
+
+
+def mesh_rows(got: list, step_key: int = 1) -> list:
+    """The mesh's generation as one batch: per step, the tokens and logits
+    of every data rank's rows (model rank 0's), in row order; the ranks of
+    each model row must agree on the tokens."""
+    heads = sorted((g for g in got if g["model"] == 0),
+                   key=lambda g: g["data"])
+    for g in got:
+        h = next(x for x in heads if x["data"] == g["data"])
+        for (t, _), (t0, _) in zip(g["steps"], h["steps"]):
+            if not np.array_equal(t, t0):
+                raise AssertionError(f"rank {g['rank']}'s tokens differ "
+                                     f"from its model row's")
+    return [(np.concatenate([h["steps"][i][0] for h in heads]),
+             np.concatenate([h["steps"][i][1] for h in heads]))
+            for i in range(len(heads[0]["steps"]))]
+
+
+def mesh_smollm_serve(dev, counts: dict, got: list) -> dict:
+    """The 1 x 3 ranks' generation (``got``) against the single-rank port's
+    on the same weights and prompts."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.layers import NO_MESH
+    cfg = get_config(SERVE_ARCH)
+    mesh_k6(got, "mesh serve", cfg.n_layers, counts, "mesh_serve_prefill")
+    model = smollm_placed(NO_MESH, dev)
+    ref, t_pre, *_ = port_serve(model, torch.tensor(
+        serve_prompts(cfg.vocab), device=dev), SERVE_NEW,
+        SERVE_S + SERVE_NEW)
+    del model
+    check = check_serve(mesh_rows(got), [top5_records(lg) for _, lg in ref])
+    t_mesh = max(g["t_prefill"] for g in got)
+    step_mesh = max(np.mean(g["t_steps"]) for g in got)
+    log(f"[mesh] smollm-135m serve on 1 x 3: each rank's K6 launches per "
+        f"prefill {[g['c_prefill']['flash_attention_fwd'] for g in got]}; "
+        f"against the single-rank port (check_serve's rule) {check}; "
+        f"prefill {t_mesh * 1e3:.1f} ms (single rank {t_pre * 1e3:.1f} ms), "
+        f"decode {step_mesh * 1e3:.1f} ms a step")
+    return dict(check=check, prefill_s=t_mesh, single_prefill_s=t_pre,
+                decode_step_s=step_mesh)
+
+
+def mesh_smollm_train(dev, counts: dict, got: list) -> dict:
+    """The 2 x 3 ranks' steps (``got``) against the single rank's on the
+    same weights and rows."""
+    from repro_torch.models.layers import NO_MESH
+    cfg = mesh_train_setup()[0]
+    ref = mesh_train(NO_MESH, dev)
+    torch.cuda.empty_cache()
+    errs = []
+    for g in got:
+        for step, (m, w) in enumerate(zip(g["metrics"], ref["metrics"])):
+            dl = abs(m["loss"] - w["loss"]) / abs(w["loss"])
+            dn = abs(m["grad_norm"] - w["grad_norm"]) / abs(w["grad_norm"])
+            if not (dl <= TRAIN_LOSS_TOL and dn <= TRAIN_NORM_TOL):
+                raise AssertionError(
+                    f"mesh train rank {g['rank']} step {step}: loss "
+                    f"{m['loss']} / grad_norm {m['grad_norm']} against the "
+                    f"single rank's {w['loss']} / {w['grad_norm']}")
+            errs.append((dl / TRAIN_LOSS_TOL, dn / TRAIN_NORM_TOL))
+        for c in g["counts"]:
+            if c["flash_attention_fwd"] != 2 * cfg.n_layers:
+                raise AssertionError(f"mesh train rank {g['rank']}: K6 "
+                                     f"launched {c['flash_attention_fwd']} "
+                                     f"times, not twice per layer")
+    counts["mesh_train_step"] = {n: sum(g["counts"][-1][n] for g in got)
+                                 for n in got[0]["counts"][-1]}
+    wall = [max(g["walls"][i] for g in got) for i in range(MESH_TRAIN_STEPS)]
+    log(f"[mesh] smollm-135m train on 2 x 3 ({TRAIN_B} x {TRAIN_S} tokens, "
+        f"{TRAIN_B // MESH_TRAIN[0]} rows a data rank, remat full): losses "
+        f"{[m['loss'] for m in got[0]['metrics']]} against the single "
+        f"rank's {[m['loss'] for m in ref['metrics']]}, grad_norm "
+        f"{[m['grad_norm'] for m in got[0]['metrics']]} against "
+        f"{[m['grad_norm'] for m in ref['metrics']]}; largest error / "
+        f"tolerance (loss, grad_norm) {max(errs)}; K6 launches per step "
+        f"per rank {[g['counts'][-1]['flash_attention_fwd'] for g in got]};"
+        f" step walls {[round(w, 3) for w in wall]} s (single rank "
+        f"{[round(w, 3) for w in ref['walls']]} s)")
+    return dict(errs=max(errs), walls=wall, single_walls=ref["walls"])
+
+
+@contextlib.contextmanager
+def pinned_routing(calls: list):
+    """Route every MoE call of ``models.mlp`` on the given scores (one per
+    call, in call order) in place of the port's own; yields the calls'
+    ``(name, capacity, dispatch, largest |own - given| / largest |given|)``."""
+    from repro_torch.models import mlp
+    originals = {n: getattr(mlp, n) for n in ("auction_route", "topk_route")}
+    seen = []
+
+    def pin(name):
+        def route(s, k, capacity, **kw):
+            ref = calls[len(seen)].to(s.device)
+            r = originals[name](ref, k, capacity, **kw)
+            seen.append((name, capacity, r.dispatch.clone(), float(
+                (s.float() - ref).abs().max() / ref.abs().max())))
+            return r
+        return route
+    try:
+        for name in originals:
+            setattr(mlp, name, pin(name))
+        yield seen
+    finally:
+        for name, fn in originals.items():
+            setattr(mlp, name, fn)
+
+
+def grouped_sharder(n: int):
+    """A ``Sharder`` without a mesh whose ``data_groups`` is ``n``: one
+    card's MoE routes its batch as ``n`` data ranks would."""
+    from repro_torch.models.layers import Sharder
+
+    class GroupedSharder(Sharder):
+        @property
+        def data_groups(self) -> int:
+            return n
+    return GroupedSharder()
+
+
+def mesh_moe_serve(dev, counts: dict, got: list) -> dict:
+    """phi3.5-moe's 2 x 2 ranks (``got``); then one rank routing as two
+    data ranks (``grouped_sharder(2)``) on the mesh's gate logits: its
+    router gives the mesh's dispatch bit for bit and its logits agree with
+    the mesh's."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import init_model
+    cfg = moe_config(get_config(MOE_ARCH))
+    mesh_k6(got, "mesh moe", cfg.n_layers, counts, "mesh_moe_prefill")
+    heads = sorted((g for g in got if g["model"] == 0),
+                   key=lambda g: g["data"])
+    for g in got:           # a model row routes alike
+        h = heads[g["data"]]
+        for a, b in zip(g["routing"], h["routing"]):
+            if not torch.equal(a[2], b[2]):
+                raise AssertionError(f"rank {g['rank']} routed otherwise "
+                                     f"than its model row")
+    n_calls = len(heads[0]["routing"])
+    scores = [torch.cat([h["routing"][i][3] for h in heads])
+              for i in range(n_calls)]
+    model = init_model(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                       device=dev)
+    model.shd = grouped_sharder(MESH_MOE[0])
+    with pinned_routing(scores) as seen:
+        ref, t_pre, *_ = port_serve(model, torch.tensor(
+            serve_prompts(cfg.vocab), device=dev), SERVE_NEW,
+            SERVE_S + SERVE_NEW)
+    del model
+    torch.cuda.empty_cache()
+    if len(seen) != n_calls:
+        raise AssertionError(f"{len(seen)} router calls, the mesh's ranks "
+                             f"made {n_calls}")
+    routed = 0
+    for i, (name, cap, disp, _) in enumerate(seen):
+        want = torch.cat([h["routing"][i][2] for h in heads])
+        if name != heads[0]["routing"][i][0] or cap != \
+                heads[0]["routing"][i][1]:
+            raise AssertionError(f"router call {i}: {name} at capacity "
+                                 f"{cap}, the mesh's "
+                                 f"{heads[0]['routing'][i][:2]}")
+        if not torch.equal(disp.cpu(), want):
+            raise AssertionError(f"router call {i} ({name}): the single "
+                                 f"rank's dispatch differs from the mesh's "
+                                 f"in {int((disp.cpu() != want).any(-1).sum())}"
+                                 f" tokens")
+        routed += int(want.sum())
+    check = check_serve(mesh_rows(got), [top5_records(lg) for _, lg in ref])
+    drift = max(d for *_, d in seen)
+    t_mesh = max(g["t_prefill"] for g in got)
+    log(f"[mesh] phi3.5-moe ({cfg.n_layers} layers) serve on 2 x 2: "
+        f"{n_calls} router calls (prefill {cfg.n_layers} auctions of "
+        f"{SERVE_B // 2 * SERVE_S} tokens a group), {routed} decisions, "
+        f"dispatch equal bit for bit; the single rank's own gate logits off "
+        f"the mesh's by {drift:.3g} of their largest; logits against it "
+        f"(check_serve's rule) {check}; prefill {t_mesh * 1e3:.1f} ms "
+        f"(single rank {t_pre * 1e3:.1f} ms); K6 launches per prefill "
+        f"{[g['c_prefill']['flash_attention_fwd'] for g in got]}")
+    return dict(check=check, routed=routed, drift=drift, prefill_s=t_mesh)
+
+
+def phase_mesh(dev, counts: dict, card: str) -> dict:
+    """The model meshes (ROADMAP M9b.8) on the one card: each rank's
+    reckoned bytes, then smollm-135m served on 1 x 3, phi3.5-moe served
+    on 2 x 2 and smollm-135m trained on 2 x 3, the 13 ranks at once, each
+    run held to the single-rank port (see MESH_DIR's note)."""
+    from repro_torch.configs.base import get_config
+    torch.cuda.empty_cache()
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on; the mesh checks assume "
+                             "full float32")
+    plans = [("serve", get_config(SERVE_ARCH), MESH_SERVE, False),
+             ("train", get_config(TRAIN_ARCH), MESH_TRAIN, True),
+             ("moe", moe_config(get_config(MOE_ARCH)), MESH_MOE, False)]
+    for name, cfg, mesh, train in plans:
+        b = mesh_bytes(cfg, mesh, train)
+        log(f"[mesh] {name} ({cfg.name}, {mesh[0]} x {mesh[1]}): reckoned "
+            f"per rank " + ", ".join(f"{k} {v / 2**30:.2f} GiB"
+                                     for k, v in b.items())
+            + f"; {mesh[0] * mesh[1]} ranks {mesh[0] * mesh[1] * b['total'] / 2**30:.2f}"
+            f" GiB of the card's 80 with activations on top")
+    smollm_weights()
+    serve, moe, train = mesh_runs_together(
+        ("serve", "serve", SERVE_ARCH, MESH_SERVE),
+        ("moe", "serve", MOE_ARCH, MESH_MOE),
+        ("train", "train", TRAIN_ARCH, MESH_TRAIN))
+    out = {"serve": mesh_smollm_serve(dev, counts, serve),
+           "moe": mesh_moe_serve(dev, counts, moe),
+           "train": mesh_smollm_train(dev, counts, train)}
+    log(f"[mesh] every rank of every run ended with code 0 on {card}")
+    return out
+
+
 def timed(walls: dict, name: str, fn, *a, **kw):
     """``fn(*a, **kw)``, its wall in seconds kept as ``walls[name]`` and
     logged."""
@@ -4190,6 +4672,7 @@ def run_smoke(jobs: list) -> int:
                                     False, torch.float32)["bound_ms"])
     del enc
     timed(walls, "kvq", phase_kvq, dev, counts, card, float_step)
+    timed(walls, "mesh", phase_mesh, dev, counts, card)
     dry = timed(walls, "dryrun", phase_dryrun, dev, counts, card, jobs)
     pre = dry["cells"]["prefill_32k"]
     kernels["flash_attention_fwd"]["prefill_32k"] = dict(

@@ -1,21 +1,29 @@
-"""Dry run: count every (arch × shape) step for one H100 and print its
-roofline row.
+"""Dry run: count every (arch × shape) step, for one H100 or per card of
+the production mesh, and print its roofline row.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch smollm-135m --shape train_4k
   python -m repro_torch.launch.dryrun --all [--out results.json]
   python -m repro_torch.launch.dryrun --arch smollm-135m \\
       --shape decode_32k --device cuda --batch 64
+  python -m repro_torch.launch.dryrun --all --mesh 16x16 [--multi-pod]
+  python -m repro_torch.launch.dryrun --arch jamba-v0.1-52b \\
+      --shape long_500k --n-layers 8
 
 Counterpart of ``repro/launch/dryrun.py``. The reference lowers and
 compiles each cell on the 16 x 16 production mesh and reads XLA's memory
 and cost analyses; the port builds each cell (``launch/specs.py``) on the
 ``meta`` device and runs it once under ``roofline_hlo.analyze``: FLOPs,
-bytes, collectives and the predicted peak device memory, for one card
-(``chips=1``, ``mesh=1``). With ``--device cuda`` the cell is built with
-random weights on the card and runs for real, counted the same way.
-There is no ``--multi-pod``: the model meshes are model parallelism,
-which one card cannot hold (ROADMAP M9b.8). Exits 1 if any cell errs.
+bytes, collectives and the predicted peak device memory. ``--mesh 1``
+(the default) counts one card (``chips=1``); with ``--device cuda`` the
+cell is built with random weights on the card and runs for real, counted
+the same way. ``--mesh 16x16`` counts rank 0 of the production mesh
+(``--multi-pod``: 2 x 16 x 16) on a ``fake`` process group: its shards,
+its rows of the batch, its collectives by kind (``mesh`` and ``chips`` in
+the row), on ``meta`` only. MLA (deepseek-v2) and Mamba2 (mamba2-370m,
+jamba) on a model axis are not ported yet: those cells are skipped with
+the reason ``M9b.8b``. ``--n-layers`` cuts the depth. Exits 1 if any
+cell errs.
 """
 from __future__ import annotations
 
@@ -25,8 +33,11 @@ import sys
 import time
 import traceback
 
+import dataclasses
+
 from repro_torch.configs.base import get_config
 from repro_torch.launch.specs import SHAPES, build_cell, cell_skip_reason
+from repro_torch.models.model import layer_plan
 from repro_torch.roofline import Roofline, model_flops_for
 from repro_torch.roofline_hlo import analyze
 
@@ -36,39 +47,70 @@ LM_ARCHS = [a for a in [
     "mamba2-370m", "jamba-v0.1-52b", "chameleon-34b"]]
 
 
+MESHES = ("1", "16x16", "2x16x16")
+
+
+def mesh_skip_reason(cfg, mesh: str) -> str | None:
+    """Why a cell is not counted on ``mesh``: MLA and Mamba2 on a model
+    axis above 1 (ROADMAP M9b.8b)."""
+    if mesh == "1":
+        return None
+    mixers = {m for m, _ in layer_plan(cfg)}
+    if cfg.attn_type == "mla" or "mamba" in mixers:
+        return ("M9b.8b: MLA and Mamba2 on a model axis above 1 are not "
+                "ported yet")
+    return None
+
+
 def run_cell(arch: str, shape: str, *, device: str = "meta",
              router_override=None, remat_override=None,
              microbatches: int = 1, grad_dtype: str = "f32",
              quantize_moments: bool = False, kv_quant: bool = False,
              batch: int | None = None, verbose: bool = True,
-             keep_output: bool = False) -> dict:
+             keep_output: bool = False, mesh: str = "1",
+             n_layers: int | None = None) -> dict:
     """One cell's counts and roofline row (``status`` ``ok``, ``skip`` or
-    ``error``), bf16 weights. ``batch`` replaces the shape's global batch;
-    with ``keep_output`` the row holds the step's return value (``out``)
-    and the ``Cell`` (``cell``)."""
+    ``error``), bf16 weights. ``batch`` replaces the shape's global batch,
+    ``n_layers`` the config's depth; ``mesh`` is one of ``MESHES`` (a mesh
+    on ``meta`` only); with ``keep_output`` the row holds the step's
+    return value (``out``) and the ``Cell`` (``cell``)."""
     cfg = get_config(arch)
-    skip = cell_skip_reason(cfg, shape)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    skip = cell_skip_reason(cfg, shape) or mesh_skip_reason(cfg, mesh)
     if skip:
-        return {"arch": arch, "shape": shape, "status": "skip",
-                "reason": skip}
+        row = {"arch": arch, "shape": shape, "status": "skip",
+               "reason": skip}
+        return row if mesh == "1" else {**row, "mesh": mesh}
     t0 = time.time()
     try:
         from repro_torch.optim.adamw import AdamWConfig
         from repro_torch.train.step import TrainConfig
+        from repro_torch.models.layers import NO_MESH, Sharder
         tcfg = TrainConfig(num_microbatches=microbatches,
                            grad_dtype=grad_dtype,
                            optimizer=AdamWConfig(
                                quantize_moments=quantize_moments))
+        shd, chips = NO_MESH, 1
+        if mesh != "1":
+            if device != "meta":
+                raise ValueError(f"--mesh {mesh} is counted on meta only")
+            from repro_torch.launch.mesh import make_production_mesh
+            shd = Sharder(make_production_mesh(
+                multi_pod=mesh == "2x16x16"))
+            chips = shd.mesh.size()
         cell = build_cell(arch, shape, device=device,
                           router_override=router_override,
                           remat_override=remat_override,
-                          kv_quant=kv_quant, tcfg=tcfg, batch=batch)
+                          kv_quant=kv_quant, tcfg=tcfg, batch=batch,
+                          n_layers=n_layers, shd=shd)
         acc = analyze(cell.fn, *cell.args)
         info = dict(SHAPES[shape])
         if batch is not None:
             info["global_batch"] = batch
         rl = Roofline(
-            arch=arch, shape=shape, mesh="1", chips=1, flops=acc["flops"],
+            arch=arch, shape=shape, mesh=mesh, chips=chips,
+            flops=acc["flops"],
             bytes_accessed=acc["bytes"], coll_bytes=acc["collective_bytes"],
             coll_breakdown=acc["collectives"],
             model_flops=model_flops_for(cfg, info),
@@ -135,6 +177,12 @@ def main(argv=None) -> int:
     ap.add_argument("--kv-quant", action="store_true")
     ap.add_argument("--batch", type=int, default=None,
                     help="rows in place of the shape's global batch")
+    ap.add_argument("--mesh", default="1", choices=["1", "16x16"],
+                    help="one card, or rank 0 of the production mesh")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="with --mesh 16x16: the 2 x 16 x 16 mesh")
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="cut the depth to this many layers")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
 
@@ -144,6 +192,9 @@ def main(argv=None) -> int:
         assert args.arch and args.shape, "--arch/--shape or --all"
         cells = [(args.arch, args.shape)]
 
+    mesh = "2x16x16" if args.multi_pod else args.mesh
+    if args.multi_pod and args.mesh != "16x16":
+        ap.error("--multi-pod needs --mesh 16x16")
     results = []
     for a, s in cells:
         results.append(run_cell(a, s, device=args.device,
@@ -153,7 +204,8 @@ def main(argv=None) -> int:
                                 grad_dtype=args.grad_dtype,
                                 quantize_moments=args.quantize_moments,
                                 kv_quant=args.kv_quant,
-                                batch=args.batch))
+                                batch=args.batch, mesh=mesh,
+                                n_layers=args.n_layers))
         if results[-1]["status"] == "skip":
             print(f"[skip] {a}/{s}: {results[-1]['reason']}", flush=True)
     if args.out:

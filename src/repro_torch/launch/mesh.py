@@ -1,9 +1,26 @@
-"""Device lanes for the batched solvers: the port's solver mesh.
+"""Model meshes and device lanes for the batched solvers.
 
-Counterpart of the solver half of ``repro/launch/mesh.py``. The reference
-shards a batch axis across a 1-D ``jax.sharding.Mesh`` under
-``shard_map``; its solvers hold no collectives, so each device solves its
-slice of the batch on its own. The port keeps exactly that and drops the
+Counterpart of ``repro/launch/mesh.py``. Every factory is a function:
+importing this module starts no process group.
+
+Model meshes (``make_production_mesh``, ``make_host_mesh``): the
+``("data", "model")`` meshes the models shard over
+(``models.layers.Sharder``), each a ``torch.distributed``
+``DeviceMesh`` over a process group. ``make_host_mesh`` spans the group
+this process has started (``init_ranks``: under ``torchrun``, or
+``spawn``'s ranks); ``make_production_mesh`` is the reference's 16 x 16
+(2 x 16 x 16 with ``multi_pod``) on a ``fake`` process group of 256
+(512) ranks, where this process is rank 0: it exists only to be
+counted (the dry run builds its cells on ``meta`` and counts rank 0's
+work). ``mesh_backend`` is the one place the backend is chosen: ``nccl``
+where every rank has a card of its own, ``gloo`` where ranks share a
+card (NCCL refuses two ranks on one device) or run on the CPU. gloo
+over CUDA tensors stages them through host memory, and lacks one
+collective (``models.layers.GLOO_CUDA_COMPOSED``).
+
+Solver lanes. The reference shards a batch axis across a 1-D
+``jax.sharding.Mesh`` under ``shard_map``; its solvers hold no
+collectives, so each device solves its slice of the batch on its own. The port keeps exactly that and drops the
 machinery: a ``SolverMesh`` is an explicit tuple of ``torch.device``s,
 one per LANE, plus the name of the axis the batch splits over. A lane
 solves a contiguous slice of the batch on its device; results are
@@ -25,23 +42,131 @@ tests, two on the one card in the smoke).
   instance of every built-in kind), which are dropped from the result.
 
 Because an instance's trajectory never depends on its batch-mates, every
-result equals the unsharded solve leaf for leaf. The reference's model
-meshes (``make_production_mesh``, ``make_host_mesh``, ``batch_spec``)
-belong to the LLM's model parallelism and are not part of this module.
+result equals the unsharded solve leaf for leaf.
 """
 from __future__ import annotations
 
 import functools
+import os
+import tempfile
 from typing import Callable, NamedTuple
 
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
 
 from repro_torch import resolve_device
 from repro_torch.core.masking import tree_leaves, tree_map
 
-__all__ = ["SolverMesh", "make_solver_mesh", "solver_batch_axis",
-           "shard_count", "compact_lanes", "scheduler_lanes",
-           "shard_batched", "dispatch_sharded"]
+__all__ = ["make_production_mesh", "make_host_mesh", "mesh_backend",
+           "init_ranks", "spawn", "batch_spec", "SolverMesh",
+           "make_solver_mesh", "solver_batch_axis", "shard_count",
+           "compact_lanes", "scheduler_lanes", "shard_batched",
+           "dispatch_sharded"]
+
+MODEL_AXES = ("data", "model")
+
+
+# ---------------------------------------------------------------------------
+# Model meshes
+# ---------------------------------------------------------------------------
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """16 x 16 = 256 cards over ``("data", "model")``; ``multi_pod``
+    prepends a 2-pod axis, ``("pod", "data", "model")``. Built on a
+    ``fake`` process group in which this process is rank 0 (started here,
+    or restarted where a fake group of another size is running): for
+    counting only, no collective moves data."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod",) + MODEL_AXES if multi_pod else MODEL_AXES
+    world = 1
+    for n in shape:
+        world *= n
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise RuntimeError("the production mesh is counted on a fake "
+                               "process group; a real one is running")
+        if dist.get_world_size() != world:
+            dist.destroy_process_group()
+    if not dist.is_initialized():
+        dist.init_process_group("fake", rank=0, world_size=world,
+                                store=FakeStore())
+    return init_device_mesh("cpu", shape, mesh_dim_names=axes)
+
+
+def mesh_backend(world: int, device) -> str:
+    """``nccl`` where each of ``world`` ranks has a card of its own,
+    ``gloo`` where they share a card or run on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and torch.cuda.device_count() >= world:
+        return "nccl"
+    return "gloo"
+
+
+def rank_device(rank: int, world: int, device) -> torch.device:
+    """The device rank ``rank`` runs on: its own card under nccl, the one
+    card (``cuda:0``) where ranks share it, or the CPU."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return dev
+    return torch.device("cuda", rank if mesh_backend(world, dev) == "nccl"
+                        else 0)
+
+
+def init_ranks(rank: int, world: int, *, store=None, device="cuda") -> str:
+    """Start this process's process group as rank ``rank`` of ``world``
+    (``store`` a ``torch.distributed`` store, or None for ``torchrun``'s
+    environment), on ``mesh_backend``'s backend. Returns the backend."""
+    backend = mesh_backend(world, device)
+    dev = rank_device(rank, world, device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    kw = {"store": store} if store is not None else {"init_method": "env://"}
+    dist.init_process_group(backend, rank=rank, world_size=world, **kw)
+    return backend
+
+
+def make_host_mesh(model_parallel: int = 1):
+    """``(world // model_parallel, model_parallel)`` over ``("data",
+    "model")`` of the process group this process has started."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if model_parallel < 1 or world % model_parallel:
+        raise ValueError(f"--model-parallel {model_parallel} does not divide "
+                         f"the {world} ranks")
+    if not dist.is_initialized():
+        return None             # one process: no mesh
+    kind = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return init_device_mesh(kind, (world // model_parallel, model_parallel),
+                            mesh_dim_names=MODEL_AXES)
+
+
+def _rank_main(rank, fn, world, store_path, device, args):
+    init_ranks(rank, world, store=dist.FileStore(store_path, world),
+               device=device)
+    try:
+        fn(rank, world, *args)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn(fn: Callable, world: int, *args, device="cuda") -> None:
+    """Run ``fn(rank, world, *args)`` in ``world`` new processes, each rank
+    of one process group (``init_ranks``; a ``FileStore`` in a temporary
+    directory, so no port is taken). Returns when all have ended; raises
+    if any rank raised or died, after stopping the others."""
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory() as d:
+        mp.start_processes(_rank_main, args=(fn, world, os.path.join(
+            d, "store"), str(device), args), nprocs=world, join=True,
+            start_method="spawn")
+
+
+def batch_spec(mesh, mesh_axis: str | None = None) -> tuple:
+    """The spec sharding a leading batch axis over ``mesh_axis`` (default
+    the mesh's first axis), trailing axes replicated: a prefix spec for
+    every leaf of a batch-leading tree."""
+    return (solver_batch_axis(mesh, mesh_axis),)
 
 
 class SolverMesh(NamedTuple):
@@ -86,11 +211,14 @@ def make_solver_mesh(n_devices: int | None = None, *, axis: str = "batch",
                       (axis,))
 
 
-def solver_batch_axis(mesh: SolverMesh, mesh_axis: str | None = None) -> str:
-    """The axis the batch dimension shards over (default: the first)."""
-    axis = mesh_axis if mesh_axis is not None else mesh.axis_names[0]
-    if axis not in mesh.axis_names:
-        raise ValueError(f"axis {axis!r} not in mesh axes {mesh.axis_names}")
+def solver_batch_axis(mesh, mesh_axis: str | None = None) -> str:
+    """The axis the batch dimension shards over (default: the first), of a
+    ``SolverMesh`` or a model mesh (``DeviceMesh``)."""
+    names = tuple(getattr(mesh, "axis_names", None)
+                  or mesh.mesh_dim_names)
+    axis = mesh_axis if mesh_axis is not None else names[0]
+    if axis not in names:
+        raise ValueError(f"axis {axis!r} not in mesh axes {names}")
     return axis
 
 

@@ -9,12 +9,17 @@ a 340 B-parameter model is built on the CPU in under a second, and
 from a ``torch.Generator`` there, and runs for real.
 
 The model is ``Model(cfg, device=..., dtype=param_dtype)``, never
-``interop.numpy_params``, which would draw every weight on the host. The
-reference's ``model_axes``, ``cache_axes_of``, ``_tree_specs``,
-``_opt_moment_specs`` and ``_named`` build logical axes and
-``NamedSharding``s for the production mesh; the port has neither (one
-card, no model parallelism: ROADMAP M9b.8), so they have no counterpart,
-and ``Cell`` has no shardings.
+``interop.numpy_params``, which would draw every weight on the host.
+
+On a mesh (``shd``, a ``Sharder`` of ``launch.mesh.make_production_mesh``)
+the cell is rank 0's part of the SPMD step: the model placed by
+``shard_model``, the rank's rows of the batch, its blocks of the caches,
+the AdamW moments placed like the parameters (the reference's
+``_opt_moment_specs``). ``model_axes``, ``cache_axes_of``, ``_tree_specs``
+and ``_opt_moment_specs`` are the reference's: logical axes of every
+parameter, cache and moment leaf and their specs on a mesh (the
+reference's ``_named`` wraps specs in ``NamedSharding``s, which the port
+does not use: its placement is ``Sharder.shard``).
 """
 from __future__ import annotations
 
@@ -24,8 +29,11 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.configs.base import ModelConfig, get_config
-from repro_torch.models.model import (Model, apply_model, init_caches,
-                                      init_model)
+from repro_torch.models.layers import NO_MESH, Sharder
+from repro_torch.models.model import (Model, apply_model, cache_axes,
+                                      init_caches, init_model, layer_plan,
+                                      param_axes, shard_model)
+from repro_torch.optim.adamw import Quantized
 from repro_torch.serve.engine import (ServeState, make_prefill_step,
                                       make_serve_step)
 from repro_torch.train.step import (TrainConfig, init_train_state,
@@ -55,9 +63,40 @@ def cell_skip_reason(cfg: ModelConfig, shape_name: str) -> str | None:
     return None
 
 
+def model_axes(cfg: ModelConfig) -> dict:
+    """``{parameter name: logical axes}`` (the port's layout), from the
+    model built on ``meta``."""
+    return param_axes(Model(cfg, device="meta"))
+
+
+def cache_axes_of(cfg: ModelConfig) -> list:
+    """Each layer's cache leaves' logical axes."""
+    return [cache_axes(cfg, spec) for spec in layer_plan(cfg)]
+
+
+def _tree_specs(shd: Sharder, tree: dict, axes: dict) -> dict:
+    """``{name: spec}`` of whole tensors ``tree`` on ``shd``."""
+    return {n: shd.spec(t.shape, axes[n]) for n, t in tree.items()}
+
+
+def _opt_moment_specs(shd: Sharder, m_tree: dict, axes: dict) -> dict:
+    """Specs for Adam moments: like the params, but 8-bit-quantized leaves
+    (``Quantized(q, scale)``) shard their leading dims like the param and
+    replicate the trailing (block, BLOCK) payload dims."""
+    def spec_of(m, a):
+        if isinstance(m, Quantized):
+            qa = tuple(a[:-1]) + (None, None)
+            return Quantized(shd.spec(m.q.shape, qa),
+                             shd.spec(m.scale.shape, qa))
+        return shd.spec(m.shape, a)
+    return {n: spec_of(m, axes[n]) for n, m in m_tree.items()}
+
+
 def resolve_config(arch: str, router_override=None, remat_override=None,
-                   kv_quant: bool = False):
+                   kv_quant: bool = False, n_layers: int | None = None):
     cfg = get_config(arch)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     if router_override and cfg.moe is not None:
         cfg = dataclasses.replace(
             cfg, moe=dataclasses.replace(cfg.moe, router=router_override))
@@ -78,13 +117,26 @@ def _generator(device, offset: int = 0):
     return torch.Generator(device=device).manual_seed(SEED + offset)
 
 
-def build_model(cfg: ModelConfig, device, dtype) -> Model:
+def build_model(cfg: ModelConfig, device, dtype,
+                shd: Sharder = NO_MESH) -> Model:
     """The model on ``device``: uninitialised on ``meta``, elsewhere with
-    ``init_model``'s weights drawn from a generator on that device."""
+    ``init_model``'s weights drawn from a generator on that device; on
+    ``shd``'s mesh this rank's blocks (``shard_model``)."""
     gen = _generator(device)
     if gen is None:
-        return Model(cfg, device=device, dtype=dtype)
-    return init_model(cfg, gen, device=device, dtype=dtype)
+        model = Model(cfg, device=device, dtype=dtype)
+    else:
+        model = init_model(cfg, gen, device=device, dtype=dtype)
+    return model if shd.mesh is None else shard_model(model, shd)
+
+
+def _rows(B: int, shd: Sharder) -> int:
+    """This rank's rows of a batch of ``B`` (all of them without a mesh)."""
+    n = shd.data_groups if shd.mesh is not None else 1
+    if B % n:
+        raise ValueError(f"a batch of {B} rows does not split over {n} "
+                         f"data-parallel ranks")
+    return B // n
 
 
 def _ids(shape, vocab: int, device, gen) -> torch.Tensor:
@@ -114,14 +166,16 @@ def _fill_caches(caches, length: int, gen) -> list:
 
 def train_cell(cfg: ModelConfig, B: int, S: int, *, device="meta",
                param_dtype=torch.bfloat16, tcfg: TrainConfig | None = None,
-               note: str = "train_step") -> Cell:
+               note: str = "train_step", shd: Sharder = NO_MESH) -> Cell:
     """``make_train_step(cfg, tcfg)`` on a ``TrainState`` of a model built
     by ``build_model``, and a batch of ``B`` rows of ``S`` tokens (an
-    encoder's: float32 frames of ``frontend_dim``) and their labels."""
+    encoder's: float32 frames of ``frontend_dim``) and their labels (on a
+    mesh this rank's rows, and moments placed like the parameters)."""
     tcfg = tcfg or TrainConfig()
     gen = _generator(device, 1)
-    model = build_model(cfg, device, param_dtype)
-    state = init_train_state(cfg, tcfg, model)
+    model = build_model(cfg, device, param_dtype, shd)
+    state = init_train_state(cfg, tcfg, model, replicate_moments=False)
+    B = _rows(B, shd)
     if cfg.frontend_dim:
         embeds = torch.empty((B, S, cfg.frontend_dim), dtype=torch.float32,
                              device=device)
@@ -139,23 +193,27 @@ def build_cell(arch: str, shape_name: str, *, device="meta",
                router_override: str | None = None,
                remat_override: str | None = None, kv_quant: bool = False,
                tcfg: TrainConfig | None = None,
-               batch: int | None = None) -> Cell:
+               batch: int | None = None, n_layers: int | None = None,
+               shd: Sharder = NO_MESH) -> Cell:
     """The cell's step and inputs on ``device``: ``batch`` (default the
-    shape's global batch) rows of the shape's length. Train:
-    ``make_train_step`` on a ``TrainState``; prefill: ``make_prefill_step``
-    over empty caches of the prompt's length (an encoder: its forward's
-    logits); decode: ``make_serve_step`` on a ``ServeState`` whose caches
-    hold ``seq_len - 1`` tokens."""
-    cfg = resolve_config(arch, router_override, remat_override, kv_quant)
+    shape's global batch) rows of the shape's length, ``n_layers`` (default
+    the config's) layers. Train: ``make_train_step`` on a ``TrainState``;
+    prefill: ``make_prefill_step`` over empty caches of the prompt's length
+    (an encoder: its forward's logits); decode: ``make_serve_step`` on a
+    ``ServeState`` whose caches hold ``seq_len - 1`` tokens. On ``shd``'s
+    mesh: this rank's part of it (see the module note)."""
+    cfg = resolve_config(arch, router_override, remat_override, kv_quant,
+                         n_layers)
     info = SHAPES[shape_name]
     S = info["seq_len"]
     B = info["global_batch"] if batch is None else batch
     tag = f"{arch}/{shape_name}"
     if info["kind"] == "train":
         return train_cell(cfg, B, S, device=device, param_dtype=param_dtype,
-                          tcfg=tcfg, note=f"{tag}: train_step")
+                          tcfg=tcfg, note=f"{tag}: train_step", shd=shd)
     gen = _generator(device, 1)
-    model = build_model(cfg, device, param_dtype)
+    model = build_model(cfg, device, param_dtype, shd)
+    B_all, B = B, _rows(B, shd)
 
     if info["kind"] == "prefill":
         if cfg.frontend_dim:
@@ -169,7 +227,8 @@ def build_cell(arch: str, shape_name: str, *, device="meta",
                 embeds.normal_(generator=gen)
             return Cell(forward, (model, embeds), (),
                         f"{tag}: encoder forward")
-        caches = init_caches(cfg, B, S, dtype=torch.bfloat16, device=device)
+        caches = init_caches(cfg, B_all, S, dtype=torch.bfloat16,
+                             device=device, shd=shd)
         prefill = make_prefill_step(model)
 
         def prefill_step(model, tokens, caches):
@@ -179,8 +238,8 @@ def build_cell(arch: str, shape_name: str, *, device="meta",
                     (2,), f"{tag}: prefill")
 
     # decode: cache holds seq_len-1 tokens, serve_step appends one
-    caches = _fill_caches(init_caches(cfg, B, S, dtype=torch.bfloat16,
-                                      device=device), S - 1, gen)
+    caches = _fill_caches(init_caches(cfg, B_all, S, dtype=torch.bfloat16,
+                                      device=device, shd=shd), S - 1, gen)
     state = ServeState(
         caches=caches, last_tokens=_ids((B,), cfg.vocab, device, gen),
         lengths=torch.full((B,), S - 1, dtype=torch.int32, device=device))

@@ -1,16 +1,29 @@
-"""Training launcher: data -> train step -> checkpoint / restart, one card.
+"""Training launcher: data -> train step -> checkpoint / restart, on one
+card or a mesh of ranks.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
       --steps 200 --batch 8 --seq 1024 --ckpt-dir /tmp/run1 --resume auto
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
       --smoke --batch 2 --seq 32 --steps 4 --device cpu
+  PYTHONPATH=src torchrun --nproc-per-node 6 -m repro_torch.launch.train \\
+      --arch smollm-135m --model-parallel 3 --batch 8 --seq 1024
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \\
+      -m repro_torch.launch.train --arch smollm-135m --smoke \\
+      --model-parallel 2 --batch 2 --seq 32 --device cpu
 
 Counterpart of ``repro/launch/train.py``: its arguments and report lines
 (``step N: loss=...``, ``[ckpt]``, ``[resume] restored step N``,
 ``[preempt]``, ``[watchdog]``), random weights from ``--seed`` (a torch
 generator, so not the JAX CLI's numbers), the data pipeline's rows from
-``--seed``. Runs on the card unless ``--device cpu`` is given. One card
-has no mesh: ``--model-parallel`` other than 1 raises (ROADMAP M9b.8).
+``--seed``. Runs on the card unless ``--device cpu`` is given.
+``--model-parallel M`` trains on a ``(world / M, M)`` mesh
+(``launch.mesh.make_host_mesh``, which refuses an M that does not divide
+the ranks) of the ranks started by ``torchrun`` (or by
+``launch.mesh.spawn`` calling ``train``): each rank keeps its blocks of
+the model (``models.model.shard_model``) and trains on its rows of every
+batch, the AdamW moments whole on every rank (the reference's ``P()``);
+rank 0 prints and writes the checkpoints, each whole
+(``train.step.state_tree``), so a run resumes on any mesh or on one card.
 The step follows the config's ``remat``, as the reference's does.
 ``--n-layers`` keeps the config's widths and takes that many layers, as
 in ``launch/serve.py``. The train state (parameters, moments, step) is
@@ -24,6 +37,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 
 import torch
 
@@ -31,15 +45,17 @@ from repro_torch import resolve_device
 from repro_torch.checkpoint import store
 from repro_torch.configs.base import get_config, smoke_variant
 from repro_torch.data.pipeline import DataConfig, make_batch
-from repro_torch.models.model import init_model
+from repro_torch.launch.mesh import init_ranks, make_host_mesh, rank_device
+from repro_torch.models.layers import NO_MESH, Sharder
+from repro_torch.models.model import init_model, shard_model
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.runtime.ft import PreemptionGuard, StepWatchdog
 from repro_torch.train.step import (TrainConfig, init_train_state,
                                     load_state_tree, make_train_step,
-                                    state_tree)
+                                    state_like, state_tree)
 
 
-def main(argv=None) -> None:
+def parse(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
@@ -60,12 +76,25 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--n-layers", type=int, default=None,
                     help="cut the depth to this many layers")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
 
-    if args.model_parallel != 1:
-        raise SystemExit("--model-parallel: the port trains on one card "
-                         "(its dry run, ROADMAP M9b.7, counts one card); "
-                         "sharding a model over cards is ROADMAP M9b.8")
+
+def main(argv=None) -> None:
+    args = parse(argv)
+    if "WORLD_SIZE" in os.environ and "RANK" in os.environ:   # torchrun
+        rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+        init_ranks(rank, world, device=args.device)
+        try:
+            train(rank, world, args)
+        finally:
+            torch.distributed.destroy_process_group()
+    else:
+        train(0, 1, args)
+
+
+def train(rank: int, world: int, args) -> None:
+    """One rank's part of the run (the whole of it in one process)."""
+    say = print if rank == 0 else (lambda *a, **k: None)
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_variant(cfg)
@@ -75,7 +104,9 @@ def main(argv=None) -> None:
         cfg = dataclasses.replace(
             cfg, moe=dataclasses.replace(cfg.moe, router=args.router))
 
-    dev = resolve_device(args.device)
+    mesh = make_host_mesh(args.model_parallel)
+    shd = NO_MESH if mesh is None else Sharder(mesh)
+    dev = resolve_device(rank_device(rank, world, args.device))
     tcfg = TrainConfig(
         optimizer=AdamWConfig(lr_peak=args.lr, warmup_steps=20,
                               decay_steps=args.steps,
@@ -83,6 +114,8 @@ def main(argv=None) -> None:
         num_microbatches=args.microbatches, grad_dtype=args.grad_dtype)
     model = init_model(cfg, torch.Generator().manual_seed(args.seed),
                        device=dev)
+    if mesh is not None:
+        model = shard_model(model, shd)
     state = init_train_state(cfg, tcfg, model)
 
     start_step = 0
@@ -90,9 +123,9 @@ def main(argv=None) -> None:
         latest = store.latest_step(args.ckpt_dir)
         if latest is not None:
             state = load_state_tree(state, store.restore(
-                args.ckpt_dir, latest, state_tree(state), device=dev))
+                args.ckpt_dir, latest, state_like(state), device=dev))
             start_step = latest
-            print(f"[resume] restored step {latest} from {args.ckpt_dir}")
+            say(f"[resume] restored step {latest} from {args.ckpt_dir}")
 
     dcfg = DataConfig(vocab=cfg.vocab, seq_len=args.seq,
                       global_batch=args.batch, seed=args.seed,
@@ -101,28 +134,35 @@ def main(argv=None) -> None:
     watchdog = StepWatchdog()
     with PreemptionGuard() as guard:
         for step in range(start_step, args.steps):
-            batch = make_batch(dcfg, step, dev)
+            batch = {k: shd.batch_rows(x)
+                     for k, x in make_batch(dcfg, step, dev).items()}
             watchdog.start()
             state, metrics = step_fn(state, batch)
             loss = float(metrics["loss"])       # waits for the step
             slow = watchdog.stop(step)
             if step % 10 == 0 or step == args.steps - 1:
-                print(f"step {step}: loss={loss:.4f} "
+                say(f"step {step}: loss={loss:.4f} "
                       f"lr={float(metrics['lr']):.2e} "
                       f"gnorm={float(metrics['grad_norm']):.2f} "
                       f"t={watchdog.times[-1]*1e3:.0f}ms"
                       + (" [STRAGGLER]" if slow else ""))
+            # every rank stops where any was asked to
+            stop = guard.requested if mesh is None else bool(shd.reduce_all(
+                torch.tensor(float(guard.requested), device=dev)) > 0)
             want_ckpt = args.ckpt_dir and (
-                (step + 1) % args.ckpt_every == 0 or guard.requested
+                (step + 1) % args.ckpt_every == 0 or stop
                 or step == args.steps - 1)
             if want_ckpt:
-                path = store.save(args.ckpt_dir, step + 1, state_tree(state))
-                print(f"[ckpt] step {step + 1} -> {path}")
-            if guard.requested:
-                print("[preempt] checkpoint written, exiting cleanly")
+                tree = state_tree(state)        # whole: every rank gathers
+                if rank == 0:
+                    path = store.save(args.ckpt_dir, step + 1, tree)
+                    say(f"[ckpt] step {step + 1} -> {path}")
+                shd.barrier()
+            if stop:
+                say("[preempt] checkpoint written, exiting cleanly")
                 return
     if watchdog.slow_steps:
-        print(f"[watchdog] {len(watchdog.slow_steps)} straggler steps "
+        say(f"[watchdog] {len(watchdog.slow_steps)} straggler steps "
               f"(median {watchdog.median*1e3:.0f}ms)")
 
 

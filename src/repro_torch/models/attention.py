@@ -42,9 +42,9 @@ from torch import nn
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ops import flash_attention_op
-from repro_torch.models.layers import (apply_rope, dense_std,
-                                       depth_scaled_std, linear, normal_,
-                                       rmsnorm)
+from repro_torch.models.layers import (NO_MESH, Sharder, apply_rope,
+                                       dense_std, depth_scaled_std, linear,
+                                       normal_, rmsnorm)
 
 NEG_INF = -1e30
 KV_CHUNK = 512          # the plain scan's key chunk (the JAX kv_chunk)
@@ -87,6 +87,10 @@ class GQA(nn.Module):
     """The GQA mixer's parameters: ``wq``, ``wk``, ``wv``, ``wo`` (bias-free
     ``nn.Linear``, weights the JAX matrices transposed) and, with
     ``cfg.qk_norm``, the RMSNorm gains ``q_g`` and ``k_g``."""
+    # the reference's logical axes, transposed into nn.Linear's (out, in)
+    AXES = {"wq.weight": ("tp", "fsdp"), "wk.weight": ("tp", "fsdp"),
+            "wv.weight": ("tp", "fsdp"), "wo.weight": ("fsdp", "tp"),
+            "q_g": (None,), "k_g": (None,)}
 
     def __init__(self, cfg, device=None, dtype=None):
         super().__init__()
@@ -100,9 +104,10 @@ class GQA(nn.Module):
             self.q_g = nn.Parameter(torch.ones(dh, device=device, dtype=dtype))
             self.k_g = nn.Parameter(torch.ones(dh, device=device, dtype=dtype))
 
-    def forward(self, x, *, positions, cache=None, decode: bool):
-        return gqa_apply(self, x, self.cfg, positions=positions, cache=cache,
-                         decode=decode)
+    def forward(self, x, *, positions, cache=None, decode: bool,
+                shd: Sharder = NO_MESH):
+        return gqa_apply(self, x, self.cfg, shd, positions=positions,
+                         cache=cache, decode=decode)
 
 
 def init_gqa(p: GQA, generator: torch.Generator) -> GQA:
@@ -272,16 +277,74 @@ def _flash_attend(q, k, v, *, causal: bool, scale: float, chunk: int):
     return out.transpose(1, 2).to(q.dtype)
 
 
-def gqa_apply(p: GQA, x, cfg, *, positions,
+def _seq_block(cache, shd: Sharder) -> tuple[int, int, bool]:
+    """``(first position, positions, split)`` of this rank's block of a
+    cache's sequence: the whole of it unless its spec splits it over a
+    model axis above 1."""
+    T = cache[0].shape[1]
+    spec = getattr(cache[0], "spec", None)
+    i, n = shd.block(spec[1]) if spec is not None else (0, 1)
+    return i * T, T, n > 1
+
+
+def gqa_apply(p: GQA, x, cfg, shd: Sharder = NO_MESH, *, positions,
               cache: Optional[KVCache | KVCacheQ] = None, decode: bool):
     """Returns (out, new_cache). Prefill: decode=False (cache optional).
     A ``KVCacheQ`` cache is written with ``_quant_kv``'s codes and scales
-    and read dequantised."""
+    and read dequantised.
+
+    One path for one card and a mesh. On a model axis of m ranks (rank r;
+    m = 1 on one card, where every collective below is the identity and
+    no masked write is made) the weights' ``"tp"`` dims are split where m
+    divides them (``Sharder.tp``), as placed.
+
+    Heads. Where m divides H (the reference's constraint of q's heads)
+    rank r runs heads ``[r H / m, (r + 1) H / m)``: its block of ``wq``'s
+    columns is exactly theirs, and it takes the kv heads of their groups.
+    Where m also divides KV, its block of ``wk`` / ``wv`` is exactly those
+    kv heads; otherwise (phi on 16 ranks: 8 kv heads, 2 q heads a rank) the
+    keys and values are made whole (gathered where their columns are split)
+    and the rank takes its block of kv heads, ``enter``ed. K6 then runs on
+    the rank's ``(B, S, H / m, dh)`` queries against its kv heads, each
+    query head still reading the kv head ``h // (H / KV)`` reads in the
+    whole launch. Where m does not divide H (smollm's 9 heads on 16
+    ranks) every rank runs every head, on queries gathered from its block
+    of columns. ``wo``'s rows follow q's columns: each rank multiplies its
+    block and the ranks' partial outputs are summed (``reduce``).
+
+    Caches hold every kv head; the sequence is split over ``model`` where
+    m divides ``S_max`` (spec ``"seq"``), else whole on every rank. The
+    prompt's rows go to the rank that holds their positions, as does
+    each decode step's new row (on a split sequence a masked write at the
+    position, no host sync). Decode against a split sequence is a
+    flash-decoding combine: every rank scores every head (the queries
+    gathered) against its positions, the ranks agree on each row's
+    maximum (all-reduce max) and sum the exponentials and their products
+    with the values (one all-reduce); against a whole cache each rank
+    attends its own heads."""
     B, S, D = x.shape
     dh, H, KV = cfg.dh, cfg.n_heads, cfg.n_kv_heads
-    q = p.wq(x).reshape(B, S, H, dh)
-    k = p.wk(x).reshape(B, S, KV, dh)
-    v = p.wv(x).reshape(B, S, KV, dh)
+    G = H // KV
+    m, r = shd.size("model"), shd.axis("model").index
+    q_split, kv_split = shd.tp(H * dh), shd.tp(KV * dh)
+    heads = H % m == 0
+    Hl = H // m if heads else H
+    h0 = r * Hl if heads else 0
+    kv_local = kv_split and heads and KV % m == 0
+    if heads and Hl % G and G % Hl:
+        raise NotImplementedError(f"{Hl} query heads a rank straddle the "
+                                  f"groups of {G}")
+    kv0, nkv = (h0 // G, max(Hl // G, 1)) if heads else (0, KV)
+    xin = shd.enter(x) if (q_split or kv_split) else x
+    q = p.wq(xin if q_split else x)
+    if q_split and not heads:
+        q = shd.gather(q, -1)
+    k, v = p.wk(xin if kv_split else x), p.wv(xin if kv_split else x)
+    if kv_split and not kv_local:
+        k, v = shd.gather(k, -1), shd.gather(v, -1)
+    q = q.reshape(B, S, Hl, dh)
+    k = k.reshape(B, S, -1, dh)
+    v = v.reshape(B, S, -1, dh)
     if cfg.qk_norm:
         q, k = rmsnorm(q, p.q_g), rmsnorm(k, p.k_g)
     if cfg.rope_theta:
@@ -289,46 +352,82 @@ def gqa_apply(p: GQA, x, cfg, *, positions,
         k = apply_rope(k, positions, cfg.rope_theta)
     scale = dh ** -0.5
     quant = isinstance(cache, KVCacheQ)
+
+    def whole(t):           # every kv head (the caches hold them all)
+        return shd.gather(t, 2) if kv_local else t
+
+    if cache is not None:
+        c0, Tl, split = _seq_block(cache, shd)
+        T = Tl * m if split else Tl
+        rows = (*_quant_kv(whole(k)), *_quant_kv(whole(v))) if quant \
+            else (whole(k), whole(v))
     if decode:
         if cache is None or S != 1:
             raise ValueError("decode takes one token and a cache")
-        T = cache[0].shape[1]
-        # dynamic_update_slice clamps the start into the buffer; so does this
-        at = cache.length.clamp(max=T - 1).long().reshape(1)
+        # dynamic_update_slice clamps the start into the buffer; so does
+        # this, then the rank holding that position writes it
+        at = cache.length.clamp(max=T - 1).long().reshape(1) - c0
+        if split:
+            own = ((at >= 0) & (at < Tl)).reshape(())
+            at = at.clamp(0, Tl - 1)
+        bufs = cache[:len(rows)]
+        for buf, row in zip(bufs, rows):
+            row = row.to(buf.dtype)
+            if split:
+                row = torch.where(own, row, buf.index_select(1, at))
+            buf.index_copy_(1, at, row)
         if quant:
-            for buf, row in zip(cache[:4], (*_quant_kv(k), *_quant_kv(v))):
-                buf.index_copy_(1, at, row)
-            new_cache = KVCacheQ(*cache[:4], cache.length + 1)
             kc = cache.k_q.float() * cache.k_s
             vc = cache.v_q.float() * cache.v_s
         else:
-            kc = cache.k.index_copy_(1, at, k.to(cache.k.dtype))
-            vc = cache.v.index_copy_(1, at, v.to(cache.v.dtype))
-            new_cache = KVCache(kc, vc, cache.length + 1)
-        G = H // KV
-        # grouped decode score: q reshaped to (B, 1, KV, G, dh)
-        qg = q.float().reshape(B, 1, KV, G, dh)
-        s = torch.einsum("bqkgd,btkd->bkgqt", qg, kc.float()) * scale
-        valid = torch.arange(T, device=x.device) <= cache.length
-        s = torch.where(valid, s, NEG_INF)    # includes the new token
-        pr = torch.softmax(s, dim=-1)
-        o = torch.einsum("bkgqt,btkd->bqkgd", pr, vc.float())
-        o = o.reshape(B, 1, H * dh).to(x.dtype)
+            kc, vc = cache.k.float(), cache.v.float()
+        new_cache = type(cache)(*bufs, cache.length + 1)
+        valid = c0 + torch.arange(Tl, device=x.device) <= cache.length
+        if split:
+            qa = shd.gather(q, 2) if heads else q      # every head
+            qg = qa.float().reshape(B, 1, KV, G, dh)
+            s = torch.einsum("bqkgd,btkd->bkgqt", qg, kc) * scale
+            s = torch.where(valid, s, NEG_INF)
+            mx = shd.all_max(s.amax(-1, keepdim=True))
+            pr = torch.exp(s - mx)
+            part = torch.cat([torch.einsum("bkgqt,btkd->bqkgd", pr, vc),
+                              pr.sum(-1).permute(0, 3, 1, 2)[..., None]], -1)
+            part = shd.reduce(part)
+            o = (part[..., :dh] / part[..., dh:]).reshape(B, 1, H * dh)
+            if heads:
+                o = o[..., h0 * dh:(h0 + Hl) * dh]
+        else:       # grouped score: q as (B, 1, kv heads, group, dh)
+            kc, vc = kc[:, :, kv0:kv0 + nkv], vc[:, :, kv0:kv0 + nkv]
+            qg = q.float().reshape(B, 1, nkv, Hl // nkv, dh)
+            s = torch.einsum("bqkgd,btkd->bkgqt", qg, kc) * scale
+            s = torch.where(valid, s, NEG_INF)    # includes the new token
+            pr = torch.softmax(s, dim=-1)
+            o = torch.einsum("bkgqt,btkd->bqkgd", pr, vc)
+            o = o.reshape(B, 1, Hl * dh)
+        o = o.to(x.dtype)
     else:
-        o = _flash_attend(q, k, v, causal=cfg.causal, scale=scale,
-                          chunk=KV_CHUNK).reshape(B, S, H * dh)
+        if kv_local or not heads or m == 1:
+            kq, vq = k, v
+        else:
+            kq, vq = shd.enter(k, 2, kv0, nkv), shd.enter(v, 2, kv0, nkv)
+        o = _flash_attend(q, kq, vq, causal=cfg.causal, scale=scale,
+                          chunk=KV_CHUNK).reshape(B, S, Hl * dh)
         if cache is None:
             new_cache = None
-        elif quant:             # prefill: quantise the whole prefix
-            for buf, rows in zip(cache[:4], (*_quant_kv(k), *_quant_kv(v))):
-                buf[:, :S] = rows
-            new_cache = KVCacheQ(*cache[:4], torch.tensor(
+        else:       # the prompt's rows at this rank's positions
+            if S > T:
+                raise ValueError(f"a prompt of {S} tokens does not fit a "
+                                 f"cache of {T}")
+            n = max(0, min(S - c0, Tl))
+            for buf, row in zip(cache, rows):
+                buf[:, :n] = row[:, c0:c0 + n].to(buf.dtype)
+            new_cache = type(cache)(*cache[:len(rows)], torch.tensor(
                 S, dtype=torch.int32, device=x.device))
-        else:                   # prefill: write into the S_max buffer
-            cache.k[:, :S] = k.to(cache.k.dtype)
-            cache.v[:, :S] = v.to(cache.v.dtype)
-            new_cache = KVCache(cache.k, cache.v, torch.tensor(
-                S, dtype=torch.int32, device=x.device))
+    if heads:
+        return shd.reduce(p.wo(o)), new_cache
+    if q_split:         # every head here, wo's rows split
+        n = H * dh // m
+        return shd.reduce(p.wo(shd.enter(o, -1, r * n, n))), new_cache
     return p.wo(o), new_cache
 
 
@@ -342,6 +441,10 @@ class MLA(nn.Module):
     RMSNorm gains ``q_norm`` and ``kv_norm``, and the per-head expansions
     ``wk_b`` ``(kv_lora, H, nope)`` and ``wv_b`` ``(kv_lora, H, v)`` in
     the JAX layout."""
+    AXES = {"wq_a.weight": (None, "fsdp"), "q_norm": (None,),
+            "wq_b.weight": ("tp", None), "wkv_a.weight": (None, "fsdp"),
+            "kv_norm": (None,), "wk_b": (None, "tp", None),
+            "wv_b": (None, "tp", None), "wo.weight": ("fsdp", "tp")}
 
     def __init__(self, cfg, device=None, dtype=None):
         super().__init__()
@@ -361,7 +464,13 @@ class MLA(nn.Module):
         self.wv_b = param(m.kv_lora_rank, H, m.v_dim)
         self.wo = linear(H * m.v_dim, D, device, dtype)
 
-    def forward(self, x, *, positions, cache=None, decode: bool):
+    def forward(self, x, *, positions, cache=None, decode: bool, shd=None):
+        """On a mesh the parameters come gathered over data; a model axis
+        above 1 is not ported."""
+        if shd is not None and shd.size("model") > 1:
+            raise NotImplementedError(
+                "MLA on a model axis above 1 is not ported yet "
+                "(ROADMAP M9b.8b)")
         return mla_apply(self, x, self.cfg, positions=positions, cache=cache,
                          decode=decode)
 

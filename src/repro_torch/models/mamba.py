@@ -49,6 +49,9 @@ class Mamba(nn.Module):
     ``conv_w`` ``(d_conv, di + 2 N)`` and ``conv_b`` in the JAX layout,
     ``A_log``, ``dt_bias``, ``D`` ``(H,)`` and the gated norm's gain
     ``norm_g`` ``(di,)``."""
+    AXES = {"in_proj.weight": ("tp", "fsdp"), "conv_w": (None, "tp"),
+            "conv_b": ("tp",), "A_log": (None,), "dt_bias": (None,),
+            "D": (None,), "norm_g": ("tp",), "out_proj.weight": ("fsdp", "tp")}
 
     def __init__(self, cfg, device=None, dtype=None):
         super().__init__()
@@ -70,9 +73,15 @@ class Mamba(nn.Module):
         self.norm_g = vec(di, 1.0)
         self.out_proj = linear(di, D, device, dtype)
 
-    def forward(self, x, *, positions=None, cache=None, decode: bool):
+    def forward(self, x, *, positions=None, cache=None, decode: bool,
+                shd=None):
         """``positions`` is taken for the mixers' common signature and not
-        used: the SSM has no positional input."""
+        used: the SSM has no positional input. On a mesh the parameters
+        come gathered over data; a model axis above 1 is not ported."""
+        if shd is not None and shd.size("model") > 1:
+            raise NotImplementedError(
+                "Mamba2 on a model axis above 1 is not ported yet "
+                "(ROADMAP M9b.8b)")
         return mamba_apply(self, x, self.cfg, cache=cache, decode=decode)
 
 

@@ -7,36 +7,53 @@ routes tokens with the capacity-constrained eps-auction of
 inside every MoE layer), ``"topk"`` is the standard baseline.
 
 Dispatch is sort-based (a stable sort by expert id, then capacity slots),
-as in the reference. One card has no mesh, so every layer routes its
-tokens as one group (the JAX ``Sharder().data_groups``). The expert
-products are batched matrix products (``torch.bmm``), as the reference's
-``einsum``s are plain XLA ops and no Pallas kernel.
+as in the reference. The tokens route in ``G = gcd(data_groups, T)``
+groups, each with its own capacity and routing problem, as the
+reference's ``moe_apply``: one group on one card (``Sharder()``; a
+subclass whose ``data_groups`` is n routes one card's batch as n data
+ranks would), one a data-parallel rank on a mesh (each rank's rows of
+the batch are its group). The expert products are batched matrix products (``torch.bmm``),
+as the reference's ``einsum``s are plain XLA ops and no Pallas kernel.
+
+On a model axis the MLP splits its hidden units (``w1`` / ``w3``
+columns, ``w2`` rows; the partial outputs summed), and the MoE its
+experts where the axis divides them: the ranks of ``model`` hold the same
+tokens and route them alike, each runs the experts it holds on the
+tokens dispatched to them, and the ranks' partial combines are summed
+(one all-reduce where the reference's partitioner places an all-to-all).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
 
 from repro_torch.core.routing import auction_route, topk_route
-from repro_torch.models.layers import (ACTIVATIONS, dense_std,
-                                       depth_scaled_std, linear, normal_)
+from repro_torch.models.layers import (ACTIVATIONS, NO_MESH, Sharder,
+                                       dense_std, depth_scaled_std, linear,
+                                       normal_)
 
 
 class MLP(nn.Module):
     """``w1``, ``w2`` and, gated, ``w3`` (bias-free ``nn.Linear``); hidden
     width ``d_ff`` (default ``cfg.d_ff``)."""
+    # the reference's logical axes, transposed into nn.Linear's (out, in)
+    AXES = {"w1.weight": ("tp", "fsdp"), "w3.weight": ("tp", "fsdp"),
+            "w2.weight": ("fsdp", "tp")}
 
     def __init__(self, cfg, device=None, dtype=None, d_ff: int | None = None):
         super().__init__()
         D, F = cfg.d_model, d_ff or cfg.d_ff
         self.cfg = cfg
+        self.d_ff = F
         self.w1 = linear(D, F, device, dtype)
         self.w2 = linear(F, D, device, dtype)
         if cfg.gated_mlp:
             self.w3 = linear(D, F, device, dtype)
 
-    def forward(self, x):
-        return mlp_apply(self, x, self.cfg)
+    def forward(self, x, shd: Sharder = NO_MESH):
+        return mlp_apply(self, x, self.cfg, shd)
 
 
 def init_mlp(p: MLP, generator: torch.Generator) -> MLP:
@@ -50,11 +67,14 @@ def init_mlp(p: MLP, generator: torch.Generator) -> MLP:
     return p
 
 
-def mlp_apply(p: MLP, x, cfg):
+def mlp_apply(p: MLP, x, cfg, shd: Sharder = NO_MESH):
+    split = shd.tp(p.d_ff)          # this rank's block of the hidden units
+    if split:
+        x = shd.enter(x)
     h = ACTIVATIONS[cfg.mlp_act](p.w1(x))
     if cfg.gated_mlp:
         h = h * p.w3(x)
-    return p.w2(h)
+    return shd.reduce(p.w2(h)) if split else p.w2(h)
 
 
 # ---------------------------------------------------------------------------
@@ -66,6 +86,8 @@ class MoE(nn.Module):
     the expert tensors ``w1``, ``w3`` ``(E, D, F)`` and ``w2`` ``(E, F, D)``
     in the JAX layout, and, with ``n_shared``, the ``shared`` MLP of width
     ``F * n_shared``."""
+    AXES = {"gate.weight": (None, "fsdp"), "w1": ("tp", "fsdp", None),
+            "w3": ("tp", "fsdp", None), "w2": ("tp", None, "fsdp")}
 
     def __init__(self, cfg, device=None, dtype=None):
         super().__init__()
@@ -84,8 +106,8 @@ class MoE(nn.Module):
         if e.n_shared:
             self.shared = MLP(cfg, device, dtype, d_ff=F * e.n_shared)
 
-    def forward(self, x, decode: bool = False):
-        return moe_apply(self, x, self.cfg, decode=decode)
+    def forward(self, x, decode: bool = False, shd: Sharder = NO_MESH):
+        return moe_apply(self, x, self.cfg, decode=decode, shd=shd)
 
 
 def init_moe(p: MoE, generator: torch.Generator) -> MoE:
@@ -113,7 +135,7 @@ def _expert_ffn(buf, p: MoE, cfg):
 
 
 def _dispatch_group(xt, disp, combine_logits, p: MoE, cfg, *, k: int,
-                    capacity: int):
+                    capacity: int, experts: tuple | None = None):
     """Dispatch, expert FFN and combine for ONE token group.
 
     ``xt`` (T, D) tokens, ``disp`` (T, E) the router's decisions,
@@ -123,7 +145,9 @@ def _dispatch_group(xt, disp, combine_logits, p: MoE, cfg, *, k: int,
     are sorted stably by id and take capacity slots in token order; what
     is past an expert's capacity is dropped. Capacity slots live in an
     ``(E + 1, C, D)`` buffer whose last expert row takes the dropped
-    writes, so no index is out of bounds.
+    writes, so no index is out of bounds. ``experts = (e0, n)``: only
+    experts ``[e0, e0 + n)`` are held here (their weights ``p.w1`` ...),
+    and the result is their part of the combine.
     """
     T, D = xt.shape
     E = cfg.moe.n_experts
@@ -141,14 +165,22 @@ def _dispatch_group(xt, disp, combine_logits, p: MoE, cfg, *, k: int,
     ok = (se < E) & (pos < capacity)
     se_c = torch.where(ok, se, E)                       # dropped -> row E
     pos_c = torch.where(ok, pos, 0)
+    wts = torch.gather(combine[st], 1, se_c.clamp(max=E - 1)[:, None])
 
-    buf = xt.new_zeros((E + 1, capacity, D))
-    buf[se_c, pos_c] = xt[st]
-    out_buf = _expert_ffn(buf[:E], p, cfg)
-
-    keep = se_c.clamp(max=E - 1)                        # read in bounds
+    if experts is None:
+        buf = xt.new_zeros((E + 1, capacity, D))
+        buf[se_c, pos_c] = xt[st]
+        out_buf = _expert_ffn(buf[:E], p, cfg)
+        keep = se_c.clamp(max=E - 1)                    # read in bounds
+    else:           # this rank's experts; the rest go to the spare row
+        e0, n = experts
+        ok = ok & (se_c >= e0) & (se_c < e0 + n)
+        mine = torch.where(ok, se_c - e0, n)
+        buf = xt.new_zeros((n + 1, capacity, D))
+        buf[mine, pos_c] = xt[st]
+        out_buf = _expert_ffn(buf[:n], p, cfg)
+        keep = mine.clamp(max=n - 1)
     gathered = out_buf[keep, pos_c]                     # (T*k, D)
-    wts = torch.gather(combine[st], 1, keep[:, None])
     contrib = torch.where(ok[:, None], gathered * wts, 0.0)
     return xt.new_zeros((T, D)).index_add_(0, st, contrib)
 
@@ -163,19 +195,25 @@ def moe_capacity(cfg, n_tokens: int, decode: bool) -> int:
                           * e.capacity_factor)), n_tokens)
 
 
-def moe_apply(p: MoE, x, cfg, decode: bool = False):
-    """x: (B, S, D) -> (B, S, D). Capacity-padded dispatch of one group.
+def moe_apply(p: MoE, x, cfg, decode: bool = False,
+              shd: Sharder = NO_MESH):
+    """x: (B, S, D) -> (B, S, D). Group-local capacity-padded dispatch.
 
     decode=True routes plain top-k with capacity == T (no truncation):
     capacity coupling across tokens would make decode disagree with the
     batched forward pass. Otherwise ``router="flow"`` routes with
     ``auction_route`` and ``"topk"`` with ``topk_route``, at
-    ``moe_capacity``.
+    ``moe_capacity`` of a group. The ``G = gcd(shd.data_groups, T)``
+    groups are routed in one call of the router; on a mesh ``x`` is this
+    rank's rows, one group.
     """
     e = cfg.moe
     B, S, D = x.shape
-    G, Tg = 1, B * S
-    k = e.top_k
+    E, k = e.n_experts, e.top_k
+    # the reference's G = gcd(data_groups, T) over the whole batch; on a
+    # mesh ``x`` is this rank's rows, which are one of those groups
+    G = 1 if shd.mesh is not None else math.gcd(shd.data_groups, B * S)
+    Tg = B * S // G
     capacity = moe_capacity(cfg, Tg, decode)
 
     xt = x.reshape(G, Tg, D)
@@ -191,11 +229,19 @@ def moe_apply(p: MoE, x, cfg, decode: bool = False):
     else:
         routing = topk_route(scores, k, capacity)
 
+    experts, xin, lin = None, xt, logits
+    if shd.tp(E):           # this rank's block of the experts
+        n = E // shd.size("model")
+        experts = (shd.axis("model").index * n, n)
+        xin, lin = shd.enter(xt), shd.enter(logits)
     out = torch.stack([
-        _dispatch_group(xt[g], routing.dispatch[g], logits[g], p, cfg, k=k,
-                        capacity=capacity) for g in range(G)])
+        _dispatch_group(xin[g], routing.dispatch[g], lin[g], p, cfg, k=k,
+                        capacity=capacity, experts=experts)
+        for g in range(G)])
+    if experts is not None:
+        out = shd.reduce(out)
     if e.n_shared:
-        out = out + mlp_apply(p.shared, xt, cfg)
+        out = out + mlp_apply(p.shared, xt, cfg, shd)
     return out.reshape(B, S, D)
 
 

@@ -41,6 +41,19 @@ positions (``layers.sinusoidal_pos``) are added to it. ``embed`` stays a
 parameter there, as in the JAX tree, and gets a zero gradient. With
 ``cfg.kv_quant`` the attention caches are ``KVCacheQ`` (int8 codes and
 float32 scales, ``models.attention``).
+
+On a mesh (``shard_model``, ``models.layers.Sharder``) each rank holds
+its shard of every parameter, placed by ``param_axes`` (the reference's
+logical axes, transposed where ``nn.Linear`` stores ``(out, in)``) and
+``Sharder.spec``, and runs the reference's program on its rows of the
+batch: each ``Block`` runs on its parameters gathered over ``data``
+(FSDP, ``Sharder.param``), attention and the MLPs split their heads,
+hidden units and experts over ``model`` (``models/attention.py``,
+``models/mlp.py``), the embedding and the logits their vocabulary, and
+the caches (``init_caches``) their rows over the batch axes and their
+sequence over ``model``. ``apply_model`` then returns this rank's logits:
+its block of the vocabulary where ``model`` splits it (the reference's
+constraint of the logits), which ``whole_logits`` makes whole.
 """
 from __future__ import annotations
 
@@ -58,8 +71,8 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import (GQA, MLA, KVCache, KVCacheQ,
                                          init_gqa, init_mla)
-from repro_torch.models.layers import (Norm, dense_std, linear, normal_,
-                                       sinusoidal_pos)
+from repro_torch.models.layers import (NO_MESH, Norm, Sharder, dense_std,
+                                       linear, normal_, sinusoidal_pos)
 from repro_torch.models.mamba import Mamba, SSMCache, init_mamba
 from repro_torch.models.mlp import MLP, MoE, init_mlp, init_moe
 
@@ -123,15 +136,31 @@ class Block(nn.Module):
             self.ffn = (MoE if ffn == "moe" else MLP)(cfg, device=device,
                                                       dtype=dtype)
 
-    def forward(self, x, *, positions, cache, decode: bool):
+    def forward(self, x, *, positions, cache, decode: bool,
+                shd: Sharder = NO_MESH, gathered: bool = False):
+        if shd.mesh is not None and not gathered:
+            # FSDP: the block runs on its parameters gathered over data
+            return gathered_call(self, shd, x, positions=positions,
+                                 cache=cache, decode=decode, shd=shd,
+                                 gathered=True)
         mo, new_cache = self.mixer(self.norm1(x), positions=positions,
-                                   cache=cache, decode=decode)
+                                   cache=cache, decode=decode, shd=shd)
         x = x + mo
         if isinstance(getattr(self, "ffn", None), MoE):
-            x = x + self.ffn(self.norm2(x), decode=decode)
+            x = x + self.ffn(self.norm2(x), decode=decode, shd=shd)
         elif hasattr(self, "ffn"):
-            x = x + self.ffn(self.norm2(x))
+            x = x + self.ffn(self.norm2(x), shd=shd)
         return x, new_cache
+
+
+def gathered_call(module: nn.Module, sharder: Sharder, *args, **kw):
+    """``module(*args, **kw)`` on its parameters as ``sharder.param``
+    gives them (gathered over data); the module itself without a mesh."""
+    if sharder.mesh is None:
+        return module(*args, **kw)
+    return torch.func.functional_call(
+        module, {n: sharder.param(p) for n, p in module.named_parameters()},
+        args, kw)
 
 
 class Model(nn.Module):
@@ -155,6 +184,7 @@ class Model(nn.Module):
         self.final_norm = Norm(cfg.d_model, cfg.norm, dev, dtype)
         if not cfg.tie_embeddings:
             self.lm_head = linear(cfg.d_model, cfg.vocab, dev, dtype)
+        self.shd = NO_MESH      # shard_model places it on a mesh
 
     def forward(self, batch, **kw) -> "ModelOutput":
         return apply_model(self, batch, **kw)
@@ -189,6 +219,66 @@ def init_model(cfg: ModelConfig, generator: torch.Generator, *, device=None,
 
 
 # ---------------------------------------------------------------------------
+# Placement
+# ---------------------------------------------------------------------------
+
+# the reference's logical axes of the top-level leaves, in the port's layout
+# (``frontend`` and ``lm_head`` are nn.Linear: (out, in), the JAX matrix
+# transposed; ``embed`` keeps the JAX layout)
+_TOP_AXES = {"embed": ("tp", "fsdp"), "frontend.weight": ("fsdp", None),
+             "lm_head.weight": ("tp", "fsdp")}
+
+
+def param_axes(model: Model) -> dict:
+    """``{parameter name: logical axes}`` in the port's layout: each
+    module's ``AXES`` (the reference's ``ParamFactory`` declarations,
+    reversed for an ``nn.Linear`` weight) under its path."""
+    out = {}
+    for name, _ in model.named_parameters():
+        if name in _TOP_AXES:
+            out[name] = _TOP_AXES[name]
+            continue
+        owner, leaf = name.rsplit(".", 1)
+        mod = model.get_submodule(owner)
+        if isinstance(mod, nn.Linear):      # weight of an nn.Linear child
+            owner, lin = owner.rsplit(".", 1)
+            leaf = f"{lin}.{leaf}"
+            mod = model.get_submodule(owner)
+        out[name] = type(mod).AXES[leaf]
+    return out
+
+
+def shard_model(model: Model, shd: Sharder, device=None,
+                fsdp: bool = True) -> Model:
+    """Place ``model`` (whole parameters, on any device, ``meta`` too) on
+    ``shd``'s mesh: each parameter is replaced by this rank's block of it
+    (a copy, on ``device`` if given), with its spec as ``.spec``, and the
+    model runs on ``shd`` from then on. Returns ``model``.
+
+    ``fsdp=False`` is the serving placement: the ``"fsdp"`` dims stay
+    whole, so each weight is split over ``model`` only and no step
+    gathers it over ``data`` (the reference's placement, the default,
+    gathers each weight at every use)."""
+    axes = param_axes(model)
+    if not fsdp:
+        axes = {n: tuple(None if a == "fsdp" else a for a in ax)
+                for n, ax in axes.items()}
+    specs = {n: shd.spec(p.shape, axes[n])
+             for n, p in model.named_parameters()}
+    for name, spec in specs.items():
+        owner, leaf = name.rsplit(".", 1) if "." in name else ("", name)
+        mod = model.get_submodule(owner)
+        old = getattr(mod, leaf)
+        block = shd.shard(old.detach(), spec)
+        block = block.to(device or block.device, copy=True).contiguous()
+        new = nn.Parameter(block, requires_grad=old.requires_grad)
+        new.spec = spec
+        setattr(mod, leaf, new)
+    model.shd = shd
+    return model
+
+
+# ---------------------------------------------------------------------------
 # Apply
 # ---------------------------------------------------------------------------
 
@@ -206,13 +296,14 @@ def _dots_policy(ctx, func, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def _run_blocks(blocks, x, positions):
+def _run_blocks(blocks, x, positions, shd=NO_MESH):
     for block in blocks:
-        x, _ = block(x, positions=positions, cache=None, decode=False)
+        x, _ = block(x, positions=positions, cache=None, decode=False,
+                     shd=shd)
     return x
 
 
-def _remat_blocks(blocks, x, positions, remat: str):
+def _remat_blocks(blocks, x, positions, remat: str, shd=NO_MESH):
     """One period of the layer plan under ``torch.utils.checkpoint``. No
     RNG state is kept: no layer draws random numbers."""
     kw = {}
@@ -221,8 +312,37 @@ def _remat_blocks(blocks, x, positions, remat: str):
             create_selective_checkpoint_contexts, _dots_policy)
     elif remat != "full":
         raise ValueError(f"remat {remat!r}: one of full, dots, none")
-    return checkpoint(_run_blocks, blocks, x, positions, use_reentrant=False,
-                      preserve_rng_state=False, **kw)
+    return checkpoint(_run_blocks, blocks, x, positions, shd,
+                      use_reentrant=False, preserve_rng_state=False, **kw)
+
+
+def _embed(model: Model, tokens, shd: Sharder):
+    """The token lookup; where ``model`` splits the vocabulary, each rank
+    looks up the tokens of its block and the ranks' rows are summed."""
+    E = shd.param(model.embed)
+    if not shd.tp(model.cfg.vocab):
+        return F.embedding(tokens.long(), E)
+    Vl = E.shape[0]
+    local = tokens.long() - shd.axis("model").index * Vl
+    hit = (local >= 0) & (local < Vl)
+    rows = F.embedding(local.clamp(0, Vl - 1), E) * hit[..., None].to(E.dtype)
+    return shd.reduce(rows)
+
+
+def _logits(model: Model, x, shd: Sharder):
+    cfg = model.cfg
+    W = shd.param(model.embed if cfg.tie_embeddings
+                  else model.lm_head.weight)
+    if shd.tp(cfg.vocab):       # this rank's block of the vocabulary
+        x = shd.enter(x)
+    return x @ W.T if cfg.tie_embeddings else F.linear(x, W)
+
+
+def whole_logits(model: Model, logits):
+    """``apply_model``'s logits over the whole vocabulary (gathered over
+    ``model`` where it splits the vocabulary)."""
+    shd = model.shd
+    return shd.gather(logits, -1) if shd.tp(model.cfg.vocab) else logits
 
 
 def apply_model(model: Model, batch, *, caches=None, decode: bool = False,
@@ -236,13 +356,16 @@ def apply_model(model: Model, batch, *, caches=None, decode: bool = False,
     ``cfg.remat``) applies where gradients are enabled and ``caches`` is
     None (see the module docstring). Returns the logits ``(B, S, vocab)``
     (``logits_mode="last"``: ``(B, 1, vocab)``) and the new caches (None
-    without caches)."""
+    without caches). On a mesh ``batch`` and ``caches`` are this rank's
+    rows, and the logits are this rank's (``whole_logits``)."""
     cfg = model.cfg
+    shd = model.shd
     remat = cfg.remat if remat is None else remat
     if cfg.frontend_dim:
-        x = model.frontend(batch["embeds"].to(model.frontend.weight.dtype))
+        x = gathered_call(model.frontend, shd, batch["embeds"].to(
+            model.frontend.weight.dtype))
     else:
-        x = F.embedding(batch["tokens"].long(), model.embed)
+        x = _embed(model, batch["tokens"], shd)
     S = x.shape[1]
     positions = pos_offset + torch.arange(S, device=x.device)
     if not cfg.causal and not cfg.rope_theta:
@@ -250,24 +373,21 @@ def apply_model(model: Model, batch, *, caches=None, decode: bool = False,
     new_caches = []
     if remat != "none" and caches is None and torch.is_grad_enabled():
         layers = list(model.layers)
-        x = _run_blocks(layers[:cfg.n_dense_prefix], x, positions)
+        x = _run_blocks(layers[:cfg.n_dense_prefix], x, positions, shd)
         period = plan_period(cfg)
         for start in range(cfg.n_dense_prefix, cfg.n_layers, period):
             x = _remat_blocks(layers[start:start + period], x, positions,
-                              remat)
+                              remat, shd)
     else:
         for i, block in enumerate(model.layers):
             x, nc = block(x, positions=positions,
                           cache=caches[i] if caches is not None else None,
-                          decode=decode)
+                          decode=decode, shd=shd)
             new_caches.append(nc)
-    x = model.final_norm(x)
+    x = gathered_call(model.final_norm, shd, x)
     if logits_mode == "last":
         x = x[:, -1:]
-    if cfg.tie_embeddings:
-        logits = x @ model.embed.T
-    else:
-        logits = model.lm_head(x)
+    logits = _logits(model, x, shd)
     return ModelOutput(logits, new_caches if caches is not None else None)
 
 
@@ -275,42 +395,60 @@ def apply_model(model: Model, batch, *, caches=None, decode: bool = False,
 # Caches
 # ---------------------------------------------------------------------------
 
-def _layer_cache(cfg, spec, B, S_max, dtype, device):
+def cache_axes(cfg: ModelConfig, spec) -> tuple:
+    """The reference's logical axes of a layer's cache leaves (the
+    reference's ``_layer_cache``; the stacked period axis aside)."""
+    if spec[0] == "mamba":
+        return SSMCache(("batch", None, None, None), ("batch", None, "tp"),
+                        ())
+    if cfg.attn_type == "mla":
+        return KVCache(("batch", "seq", None), ("batch", "seq", None), ())
+    if cfg.kv_quant:
+        return KVCacheQ(*(("batch", "seq", None, None),) * 4, ())
+    return KVCache(("batch", "seq", None, None), ("batch", "seq", None, None),
+                   ())
+
+
+def _layer_cache(cfg, spec, B, S_max, dtype, device, shd=NO_MESH):
     """GQA: ``KVCache`` k and v ``(B, S_max, KV, dh)``, or with
     ``cfg.kv_quant`` ``KVCacheQ``: int8 codes ``(B, S_max, KV, dh)`` and
     float32 scales ``(B, S_max, KV, 1)`` whatever ``dtype``; MLA:
     ``c_kv`` ``(B, S_max, kv_lora)`` and ``k_rope`` ``(B, S_max, rope)``;
     mamba: ``SSMCache`` with ``state`` ``(B, H, P, N)`` in float32
-    whatever ``dtype``, ``conv`` ``(B, d_conv - 1, di + 2 N)``."""
-    length = torch.tensor(0, dtype=torch.int32, device=device)
+    whatever ``dtype``, ``conv`` ``(B, d_conv - 1, di + 2 N)``. On a mesh
+    each leaf is this rank's block, its spec as ``.spec``."""
     if spec[0] == "mamba":
         s = cfg.ssm
         di = s.d_inner(cfg.d_model)
-        return SSMCache(
-            torch.zeros((B, s.n_heads(cfg.d_model), s.head_dim, s.d_state),
-                        dtype=torch.float32, device=device),
-            torch.zeros((B, s.d_conv - 1, di + 2 * s.d_state), dtype=dtype,
-                        device=device),
-            length)
-    if cfg.attn_type == "mla":
-        shapes = ((B, S_max, cfg.mla.kv_lora_rank),
-                  (B, S_max, cfg.mla.qk_rope_dim))
+        leaves = (((B, s.n_heads(cfg.d_model), s.head_dim, s.d_state),
+                   torch.float32), ((B, s.d_conv - 1, di + 2 * s.d_state),
+                                    dtype))
+    elif cfg.attn_type == "mla":
+        leaves = (((B, S_max, cfg.mla.kv_lora_rank), dtype),
+                  ((B, S_max, cfg.mla.qk_rope_dim), dtype))
     elif cfg.kv_quant:
         codes = (B, S_max, cfg.n_kv_heads, cfg.dh)
-        leaves = ((codes, torch.int8), (codes[:-1] + (1,), torch.float32))
-        return KVCacheQ(*(torch.zeros(s, dtype=dt, device=device)
-                          for s, dt in leaves * 2), length)
+        leaves = ((codes, torch.int8), (codes[:-1] + (1,), torch.float32)) * 2
     else:
-        shapes = ((B, S_max, cfg.n_kv_heads, cfg.dh),) * 2
-    return KVCache(*(torch.zeros(s, dtype=dtype, device=device)
-                     for s in shapes), length)
+        leaves = (((B, S_max, cfg.n_kv_heads, cfg.dh), dtype),) * 2
+    out = []
+    for (shape, dt), axes in zip(leaves, cache_axes(cfg, spec)):
+        sp = shd.spec(shape, axes)
+        t = torch.zeros(shd.shard(torch.empty(shape, device="meta"),
+                                  sp).shape, dtype=dt, device=device)
+        if shd.mesh is not None:
+            t.spec = sp
+        out.append(t)
+    length = torch.tensor(0, dtype=torch.int32, device=device)
+    return type(cache_axes(cfg, spec))(*out, length)
 
 
 def init_caches(cfg: ModelConfig, B: int, S_max: int, dtype=torch.bfloat16,
-                device=None) -> list:
+                device=None, shd: Sharder = NO_MESH) -> list:
     """One empty cache per layer, ``KVCache`` (``KVCacheQ`` with
     ``cfg.kv_quant``) or ``SSMCache`` by the layer's mixer (the JAX
-    package stacks the body's along a leading period axis)."""
+    package stacks the body's along a leading period axis); on ``shd``'s
+    mesh this rank's blocks of the ``(B, S_max, ...)`` caches."""
     dev = resolve_device(device)
-    return [_layer_cache(cfg, spec, B, S_max, dtype, dev)
+    return [_layer_cache(cfg, spec, B, S_max, dtype, dev, shd)
             for spec in layer_plan(cfg)]

@@ -1,11 +1,20 @@
 """AdamW with optional 8-bit moment quantization, on named parameters.
 
-Counterpart of ``repro/optim/adamw.py``. One card has no mesh, so there
-is no ZeRO sharding: the moments live beside the parameters on the same
-device. The JAX package maps over a params tree and returns new arrays;
-the port keys parameters, gradients and moments by parameter name (the
-names of ``Model.named_parameters()``) and updates the parameters in
-place under ``torch.no_grad()``. The arithmetic is the reference's, in
+Counterpart of ``repro/optim/adamw.py``. The moments live beside the
+parameters on the same device. On a mesh (parameters placed by
+``models.model.shard_model``, gradients placed like them) the caller
+says where the moments are, and ``moment_spec`` places each one: whole
+on every rank (``whole=True``, the reference's launcher's ``P()``), or
+like its parameter (the reference's dry run, ``_opt_moment_specs``),
+where a ``Quantized`` moment keeps its last dim whole, since its blocks
+of ``BLOCK`` run along it. The gradient is gathered over the dims its
+moment holds whole, the update computed there and the rank's block of
+it applied, so each rank's parameters change exactly as the one card's
+would for the same gradients. The gradient norm is summed over the
+ranks' blocks, each block once. The JAX package maps over a params tree
+and returns new arrays; the port keys parameters, gradients and moments
+by parameter name (the names of ``Model.named_parameters()``) and
+updates the parameters in place under ``torch.no_grad()``. The arithmetic is the reference's, in
 its operation order and in float32.
 
 ``quantize_moments=True`` stores m and v as int8 with one float32 scale
@@ -83,18 +92,54 @@ def lr_schedule(cfg: AdamWConfig, step):
     return torch.where(step < cfg.warmup_steps, warm, cos)
 
 
-def init_opt_state(cfg: AdamWConfig, params: dict) -> OptState:
+def quantizes(cfg: AdamWConfig, shape) -> bool:
+    """Whether the moments of a parameter of (whole) ``shape`` are
+    ``Quantized``: with ``cfg.quantize_moments``, where it has an axis and
+    at least ``BLOCK`` values."""
+    return cfg.quantize_moments and len(shape) >= 1 \
+        and math.prod(shape) >= BLOCK
+
+
+def moment_spec(spec, quantized: bool, whole: bool) -> tuple:
+    """The placement of a moment over its parameter's dims, for a
+    parameter placed by ``spec``: nothing split where the moments are
+    ``whole``, else the parameter's, but a ``Quantized`` moment keeps its
+    last dim whole (the reference's ``_opt_moment_specs``)."""
+    if whole:
+        return (None,) * len(spec)
+    return tuple(spec[:-1]) + (None,) if quantized else tuple(spec)
+
+
+def on_moment(fn, m, ms):
+    """``fn(tensor, spec)`` on a moment placed by ``ms``; on a
+    ``Quantized`` one its payload and scales, whose leading dims are
+    placed by ``ms`` and whose (blocks, BLOCK) dims are whole."""
+    if isinstance(m, Quantized):
+        qs = tuple(ms[:-1]) + (None, None)
+        return Quantized(fn(m.q, qs), fn(m.scale, qs))
+    return fn(m, ms)
+
+
+def init_opt_state(cfg: AdamWConfig, params: dict, shd=None,
+                   whole: bool = True) -> OptState:
     """Zero moments (float32) per named parameter on its device,
-    quantized where ``cfg.quantize_moments`` and the parameter has an axis
-    and at least ``BLOCK`` values; step 0. The step counter stays on the
+    ``Quantized`` where ``quantizes``; step 0. On ``shd``'s mesh each
+    parameter's moments are of its whole shape placed by ``moment_spec``
+    (``whole``: whole on every rank). The step counter stays on the
     host: the schedule and the bias corrections are computed there, in the
     reference's float32 operations (the card's division of a tensor by a
     scalar multiplies by its reciprocal, one ulp off), and no step waits
     for the device to read it."""
+    mesh = shd is not None and shd.mesh is not None
+
     def zero_like(p):
-        z = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-        return _quantize(z) if cfg.quantize_moments and p.dim() >= 1 \
-            and p.numel() >= BLOCK else z
+        shape = shd.full_shape(p.shape, p.spec) if mesh else p.shape
+        quantized = quantizes(cfg, shape)
+        if mesh:
+            ms = moment_spec(p.spec, quantized, whole)
+            shape = shd.shard(torch.empty(shape, device="meta"), ms).shape
+        z = torch.zeros(shape, dtype=torch.float32, device=p.device)
+        return _quantize(z) if quantized else z
     return OptState(step=torch.zeros((), dtype=torch.int32),
                     m={n: zero_like(p) for n, p in params.items()},
                     v={n: zero_like(p) for n, p in params.items()})
@@ -112,15 +157,27 @@ def global_norm(tensors) -> torch.Tensor:
                           for x in tensors))
 
 
+def _mesh_norm(shd, params: dict, grads: dict) -> torch.Tensor:
+    """``global_norm`` of gradients placed like their parameters: each
+    block's squares over the ranks that hold it, summed over the mesh."""
+    sq = sum(torch.sum(torch.square(grads[n].float()))
+             / shd.replicas(p.spec) for n, p in params.items())
+    return torch.sqrt(shd.reduce_all(sq))
+
+
 def apply_updates(cfg: AdamWConfig, params: dict, grads: dict,
-                  state: OptState):
+                  state: OptState, shd=None, whole: bool = True):
     """One AdamW step with global-norm clipping: every ``params[name]`` is
     updated in place from ``grads[name]``. Returns ``(params, new_state,
     {"lr", "grad_norm"})``; the state's moments are new tensors. ``lr``
-    and the new step are on the host, with the state's step."""
+    and the new step are on the host, with the state's step. ``shd``: the
+    parameters' ``Sharder``; ``whole``: the moments' placement on its
+    mesh, as ``init_opt_state`` made them (see the module note)."""
+    mesh = shd is not None and shd.mesh is not None
     step = state.step + 1
     lr = lr_schedule(cfg, state.step)
-    gnorm = global_norm(grads[n] for n in params)
+    gnorm = _mesh_norm(shd, params, grads) if mesh else \
+        global_norm(grads[n] for n in params)
     clip = torch.clamp_max(cfg.grad_clip / torch.clamp_min(gnorm, 1e-9),
                            1.0)
     bc1 = 1 - cfg.b1 ** step.float()
@@ -131,12 +188,20 @@ def apply_updates(cfg: AdamWConfig, params: dict, grads: dict,
             g = grads[name].float() * clip
             m, v = state.m[name], state.v[name]
             quantized = isinstance(m, Quantized)
+            if mesh:        # the gradient over the dims its moment holds
+                ms = moment_spec(p.spec, quantized, whole)
+                gs = tuple(e if w is None else None
+                           for e, w in zip(p.spec, ms))
+                g = shd.unshard(g, gs)
+            shape = g.shape
             if quantized:
-                m = _dequantize(m, p.shape)
-                v = _dequantize(v, p.shape) ** 2      # stored as sqrt(v)
+                m = _dequantize(m, shape)
+                v = _dequantize(v, shape) ** 2        # stored as sqrt(v)
             m = cfg.b1 * m + (1 - cfg.b1) * g
             v = cfg.b2 * v + (1 - cfg.b2) * g * g
             u = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
+            if mesh:
+                u = shd.shard(u, gs)
             p32 = p.float()
             p.copy_((p32 - lr * (u + cfg.weight_decay * p32)).to(p.dtype))
             if quantized:

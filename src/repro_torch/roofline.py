@@ -5,14 +5,21 @@ card), in seconds:
 
     compute    = FLOPs / the card's peak for the cell's dtype
     memory     = bytes moved / 3.35 TB/s HBM
-    collective = collective bytes / 450 GB/s NVLink (each way)
+    collective = collective bytes / the link rate per card (``link_bw``)
 
 The counts come from ``roofline_hlo.analyze``, which runs the step once
 under a dispatch mode: FLOPs of the matmuls and K6, bytes at every op
-boundary, collectives (none on one card). The peaks are one H100 SXM's
-published rates: 989 TFLOP/s dense bf16 on the tensor cores and 67
-TFLOP/s float32 off them (the port runs its float32 matmuls with TF32
-off). The reference's ``cost_analysis_dict`` normalises the return value
+boundary, the output bytes of each collective (none on one card); on a
+mesh they are rank 0's, one card's share of the step. The peaks are one
+H100 SXM's published rates: 989 TFLOP/s dense bf16 on the tensor cores
+and 67 TFLOP/s float32 off them (the port runs its float32 matmuls with
+TF32 off). The link rate: within a node of 8 cards, NVLink 4 at 450 GB/s
+each way (900 GB/s both ways, NVIDIA's H100 SXM data sheet); a mesh of
+more cards spans nodes, and every group of the production meshes (16
+consecutive ranks along ``model``, 16 at a stride along ``data``)
+crosses them, so there the rate is the fabric's per card, assumed to be
+the DGX H100 / SuperPOD layout of one 400 Gb/s NDR InfiniBand port per
+card: 50 GB/s each way. The reference's ``cost_analysis_dict`` normalises the return value
 of XLA's ``compiled.cost_analysis()`` across JAX versions; the port
 compiles nothing, so it has no counterpart.
 
@@ -28,7 +35,15 @@ import dataclasses
 
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}   # H100 SXM, dense
 HBM_BW = 3.35e12            # bytes/s
-LINK_BW = 450e9             # bytes/s, NVLink each way
+LINK_BW = 450e9             # bytes/s, NVLink each way (within a node)
+NET_BW = 50e9               # bytes/s each way per card between nodes
+NODE_CARDS = 8
+
+
+def link_bw(chips: int) -> float:
+    """The link rate per card a step of ``chips`` cards is bound by:
+    NVLink within a node, the fabric across nodes."""
+    return LINK_BW if chips <= NODE_CARDS else NET_BW
 
 
 def causal_pairs(Sq: int, Sk: int) -> int:
@@ -84,7 +99,7 @@ class Roofline:
 
     @property
     def t_collective(self):
-        return self.coll_bytes / LINK_BW
+        return self.coll_bytes / link_bw(self.chips)
 
     @property
     def t_step(self):

@@ -13,7 +13,11 @@ ops instead. ``analyze(fn, *args)`` runs ``fn`` once under a
                    eager PyTorch every op is a boundary (the reference's
                    "non-fused op boundaries"); views and ``empty`` move
                    nothing and count 0
-  * collectives  — bytes per collective kind: none on one card
+  * collectives  — output bytes per collective kind (all-gather,
+                   all-reduce, reduce-scatter, all-to-all), as the
+                   reference counts them: every ``_c10d_functional`` op
+                   the rank issues, forward and backward (none on one
+                   card); they count into the bytes too, as there
   * peak_bytes   — the high-water mark of live device storages (not the
                    CPU's), the step's inputs counted from entry
 
@@ -24,7 +28,9 @@ construction. On the ``meta`` device nothing runs and nothing is
 allocated: the same ops dispatch with shapes only, so a 340 B-parameter
 step is counted on the CPU in seconds. K6 dispatches as one op on both
 ``cuda`` and ``meta`` (its ``meta`` version only makes the outputs), so a
-step counted on the card gives the ``meta`` count.
+step counted on the card gives the ``meta`` count. A collective on
+``meta`` tensors (a mesh cell, on a ``fake`` process group) is not run:
+the mode makes its output's shape.
 """
 from __future__ import annotations
 
@@ -114,19 +120,59 @@ class _Live:
         self.now -= n
 
 
+# the collectives, by their ``_c10d_functional`` names, and their kinds
+_COLLECTIVES = {"all_gather_into_tensor": "all-gather",
+                "all_reduce": "all-reduce",
+                "reduce_scatter_tensor": "reduce-scatter",
+                "all_to_all_single": "all-to-all", "broadcast": "broadcast"}
+
+
+def _collective_meta(name: str, args) -> torch.Tensor:
+    """A collective's output on ``meta`` (the op is not run)."""
+    t = args[0]
+    shape = list(t.shape)
+    if name == "all_gather_into_tensor":
+        shape[0] *= args[1]
+    elif name == "reduce_scatter_tensor":
+        shape[0] //= args[2]
+    elif name == "all_to_all_single" and args[1]:
+        shape[0] = sum(args[1])
+    return torch.empty(shape, dtype=t.dtype, device="meta")
+
+
 class _Count(TorchDispatchMode):
     def __init__(self, live: _Live):
         super().__init__()
         self.live = live
         self.flops = 0
         self.bytes = 0
+        self.colls = defaultdict(float)
         self.by_op = defaultdict(lambda: {"count": 0, "flops": 0,
                                           "bytes": 0})
+
+    def _collective(self, func, args, kwargs):
+        name = func._overloadpacket.__name__
+        meta = args[0].device.type == "meta"
+        if name == "wait_tensor":
+            return args[0] if meta else func(*args, **kwargs)
+        out = _collective_meta(name, args) if meta \
+            else func(*args, **kwargs)
+        b = _nbytes(out)
+        kind = _COLLECTIVES.get(name, name)
+        self.colls[kind] += b
+        self.bytes += b
+        rec = self.by_op[f"_c10d_functional.{name}"]
+        rec["count"] += 1
+        rec["bytes"] += b
+        self.live.add(out)
+        return out
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         if func in _QUERIES:
             return func(*args, **kwargs)
+        if func.namespace == "_c10d_functional":
+            return self._collective(func, args, kwargs)
         # a composite op (``linear``, ``einsum``, ``matmul``: what reaches
         # the mode under ``inference_mode``) counts as the ops it is made of
         if func._overloadpacket not in flop_registry:
@@ -161,7 +207,8 @@ class _Count(TorchDispatchMode):
 
 def analyze(fn, *args, **kwargs) -> dict:
     """Run ``fn(*args, **kwargs)`` once, counted. Returns ``flops``,
-    ``bytes``, ``collectives`` (``{}``), ``collective_bytes`` (0.0),
+    ``bytes``, ``collectives`` (output bytes by kind; ``{}`` on one card),
+    ``collective_bytes`` (their sum),
     ``peak_bytes``, ``entry_bytes`` (the inputs' device storages),
     ``end_bytes`` (the device storages live when ``fn`` returns),
     ``by_op`` (``{op: {"count", "flops", "bytes"}}``) and ``out``, what
@@ -174,7 +221,8 @@ def analyze(fn, *args, **kwargs) -> dict:
     with mode:
         out = fn(*args, **kwargs)
     return {"flops": float(mode.flops), "bytes": float(mode.bytes),
-            "collectives": {}, "collective_bytes": 0.0,
+            "collectives": dict(mode.colls),
+            "collective_bytes": float(sum(mode.colls.values())),
             "peak_bytes": float(live.peak), "entry_bytes": float(entry),
             "end_bytes": float(live.now),
             "by_op": {k: dict(v) for k, v in mode.by_op.items()},

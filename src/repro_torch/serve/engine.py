@@ -15,7 +15,12 @@ numpy) and device stage (one batched solve per bucket, on the card unless
 The JAX steps take the params tree as an argument; here the parameters
 live in the ``Model``, so the step makers take the model. Steps run under
 ``torch.inference_mode`` and update the caches in place (see
-``models/attention.py``).
+``models/attention.py``). On a mesh (``models.model.shard_model``) the
+steps take this rank's rows of the batch and caches (``init_caches(...,
+shd=model.shd)``) and every rank of ``model`` picks the same tokens from
+the logits made whole over the vocabulary. A server places its model
+with ``shard_model(..., fsdp=False)``, weights whole over ``data``, so no
+step gathers them; on the reference's placement every step does.
 """
 from __future__ import annotations
 
@@ -32,7 +37,8 @@ from repro_torch.core.batch import (BucketStats, PreparedBucket,  # noqa: F401
                                     validate_assignment_matrix,
                                     validate_grid_problem)
 from repro_torch.core.kinds import get_kind
-from repro_torch.models.model import Model, apply_model, init_caches
+from repro_torch.models.model import (Model, apply_model, init_caches,
+                                      whole_logits)
 from repro_torch.obs.trace import current_tracer, step_annotation
 
 
@@ -56,7 +62,7 @@ def make_prefill_step(model: Model):
         """tokens: (B, S). Returns (first generated token, ServeState)."""
         out = apply_model(model, {"tokens": tokens}, caches=caches,
                           logits_mode="last")
-        last = out.logits[:, -1]
+        last = whole_logits(model, out.logits[:, -1])
         nxt = _greedy(last)
         B, S = tokens.shape
         return nxt, ServeState(out.caches, nxt,
@@ -76,7 +82,7 @@ def make_serve_step(model: Model):
         out = apply_model(model, {"tokens": state.last_tokens[:, None]},
                           caches=state.caches, decode=True,
                           pos_offset=state.lengths[0], logits_mode="last")
-        last = out.logits[:, -1]
+        last = whole_logits(model, out.logits[:, -1])
         nxt = _greedy(last)
         return nxt, ServeState(out.caches, nxt, state.lengths + 1, last)
     return serve_step
@@ -85,10 +91,12 @@ def make_serve_step(model: Model):
 @torch.inference_mode()
 def greedy_generate(model: Model, prompt_tokens, max_new: int):
     """Reference end-to-end generation loop: ``(B, max_new)`` int32 tokens
-    on the prompts' device."""
+    on the prompts' device (on a mesh: this rank's rows of the prompts)."""
     B, S = prompt_tokens.shape
+    if model.shd.mesh is not None:      # the whole batch's caches
+        B *= model.shd.data_groups
     caches = init_caches(model.cfg, B, S + max_new + 1, dtype=torch.float32,
-                         device=prompt_tokens.device)
+                         device=prompt_tokens.device, shd=model.shd)
     nxt, state = make_prefill_step(model)(prompt_tokens, caches)
     step = make_serve_step(model)
     toks = [nxt]

@@ -52,6 +52,11 @@ def test_import_pulls_in_neither_jax_nor_repro():
         "import repro_torch.launch.train\n"
         "import repro_torch.roofline, repro_torch.roofline_hlo\n"
         "import repro_torch.launch.specs, repro_torch.launch.dryrun\n"
+        "from repro_torch.launch.mesh import (make_host_mesh, spawn,\n"
+        "    make_production_mesh, init_ranks, mesh_backend, batch_spec)\n"
+        "from repro_torch.models.layers import Sharder, DEFAULT_RULES\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()\n"
         "from repro_torch.core.kinds import get_kind, registered_kinds\n"
         "assert get_kind('matching').name == 'matching'\n"
         "assert registered_kinds() == ('maxflow', 'assignment', 'matching')\n"
@@ -65,11 +70,14 @@ def test_import_pulls_in_neither_jax_nor_repro():
     assert proc.stdout.strip() == "[]"
 
 
-# the card-only variant scripts run where jax is not installed
+# the card-only variant scripts, and the mesh tests' ranks, import no jax
 _CARD_SCRIPTS = ["tests/torch_smoke_k4_variants.py",
                  "tests/torch_smoke_k5_variants.py",
                  "tests/torch_smoke_k6_ablation.py",
-                 "tests/torch_smoke_train_rows.py"]
+                 "tests/torch_smoke_train_rows.py",
+                 "tests/torch_mesh_ranks.py",
+                 "tests/torch_mesh_gloo_probe.py",
+                 "tests/torch_smoke_mesh.py"]
 
 
 @pytest.mark.parametrize("path", sorted(

@@ -802,6 +802,43 @@ def test_k6_kernel_close_to_plain(cuda_device, dims, causal):
     assert (got - want).abs().max().item() <= 3e-5
 
 
+# K6 on one rank's heads of a model axis of m (models/attention.py,
+# gqa_apply): (B, S, H, KV, dh, m, causal, dtype) -- smollm on 3 ranks
+# (3 q heads over 1 kv head a rank), phi on 2 (16 over 4) and on 16 (2 q
+# heads sharing 1 kv head: each q head still reads the kv head of its
+# group), hubert's MHA on 2, non-causal, and smollm in bfloat16
+K6_SHARDS = [
+    (8, 1024, 9, 3, 64, 3, True, torch.float32),
+    (8, 1024, 32, 8, 128, 2, True, torch.float32),
+    (2, 256, 32, 8, 128, 16, True, torch.float32),
+    (2, 512, 16, 16, 80, 2, False, torch.float32),
+    (2, 512, 9, 3, 64, 3, True, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("B,S,H,KV,dh,m,causal,dtype", K6_SHARDS)
+def test_k6_on_a_head_shard(cuda_device, B, S, H, KV, dh, m, causal, dtype):
+    """Each rank's launch on its ``H / m`` heads and the kv heads of their
+    groups equals its plain version (within the sweep's tolerance) and
+    the same heads of the whole launch bit for bit."""
+    rng = np.random.default_rng(3)
+    t = lambda *s: torch.tensor(rng.normal(size=s), dtype=dtype,  # noqa
+                                device=cuda_device)
+    q, k, v = t(B, S, H, dh), t(B, S, KV, dh), t(B, S, KV, dh)
+    whole = fak.flash_attention_fwd(q, k, v, causal=causal)
+    G, Hl = H // KV, H // m
+    tol = 3e-5 if dtype == torch.float32 else 2e-2
+    for r in range(m):
+        h0 = r * Hl
+        kv0, nkv = h0 // G, max(Hl // G, 1)
+        qs = q[:, :, h0:h0 + Hl].contiguous()
+        ks, vs = (x[:, :, kv0:kv0 + nkv].contiguous() for x in (k, v))
+        got = fak.flash_attention_fwd(qs, ks, vs, causal=causal)
+        plain = flash_attention_ref(qs, ks, vs, causal=causal)
+        assert (got.float() - plain.float()).abs().max().item() <= tol, r
+        assert torch.equal(got, whole[:, :, h0:h0 + Hl]), r
+
+
 # bfloat16: the JAX kernel test's case, the serve prefill's shape, tails
 # with MQA and dh != dv, the widest heads, odd dh (synchronous 2-byte copies)
 K6_BF16 = [

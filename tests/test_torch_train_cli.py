@@ -9,6 +9,7 @@ function of the step, every CPU operation is deterministic).
 """
 import numpy as np
 import pytest
+import torch_mesh_ranks as ranks
 
 from repro_torch.launch import train as cli
 from repro_torch.runtime import ft
@@ -70,12 +71,34 @@ def test_watchdog_line(capsys, monkeypatch):
     assert "[watchdog] 2 straggler steps (median 500ms)" in out
 
 
-@pytest.mark.parametrize("args,match", [
-    (["--model-parallel", "2"], "M9b.7"),
-])
-def test_refuses_model_parallel(capsys, args, match):
-    with pytest.raises(SystemExit, match=match):
-        _run(capsys, "--steps", "1", *args)
+@pytest.mark.parametrize("model_parallel", [2, 3])
+def test_model_parallel(tmp_path, capsys, model_parallel):
+    """``torchrun --nproc-per-node 2 ... --model-parallel 2``: two CPU
+    ranks on a 1 x 2 mesh train 3 steps and write the whole state, which
+    matches the one-rank run's within 1e-4 of each leaf's largest |value|
+    (other summation orders), the step counter exactly;
+    ``--model-parallel 3`` does not divide the 2 ranks, and
+    ``make_host_mesh`` refuses it."""
+    mesh = ["--model-parallel", str(model_parallel), "--steps", "3"]
+    if model_parallel == 3:
+        run = ranks.torchrun("repro_torch.launch.train", 2, [*BASE, *mesh])
+        assert run.returncode != 0
+        assert "--model-parallel 3 does not divide the 2 ranks" in run.stderr
+        return
+    a, b = tmp_path / "a", tmp_path / "b"
+    _run(capsys, "--steps", "3", "--ckpt-dir", str(a))
+    run = ranks.torchrun("repro_torch.launch.train", 2,
+                         [*BASE, *mesh, "--ckpt-dir", str(b)])
+    assert run.returncode == 0, run.stderr[-4000:]
+    out = run.stdout
+    assert "step 0: loss=" in out and "step 2: loss=" in out
+    assert out.count("step 0: loss=") == 1          # rank 0 prints
+    got, want = _leaves(b / "step_00000003"), _leaves(a / "step_00000003")
+    assert len(got) == len(want) > 50
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype and x.shape == y.shape
+        np.testing.assert_allclose(x, y, rtol=0,
+                                   atol=1e-4 * max(np.abs(y).max(), 1e-30))
 
 
 def test_refuses_the_encoder(tmp_path, capsys):
