@@ -260,9 +260,19 @@ Drives ``src/repro_torch`` only (no ``jax``, nothing of ``repro``):
    2 x 3 for MESH_TRAIN_STEPS steps of 8 x 1024 tokens under remat
    ``"full"`` (loss and grad_norm within the train check's tolerances of
    the single-rank step's on the same weights and rows; K6 twice per
-   layer per step on every rank); each rank's reckoned bytes are logged
-   first (``[mesh]`` lines). A rank that fails, or any mismatch, fails
-   the run.
+   layer per step on every rank); then (ROADMAP M9b.8b), while the
+   single-rank references of those three run, two runs on 1 x 2:
+   deepseek-v2 at full width and DS_LAYERS layers (MLA, 64 of its 128
+   heads a rank, the caches' sequence split: the absorbed decode's
+   flash-decoding combine; routing held bit for bit to a single rank's
+   on the mesh's gate logits; K6 once per layer per prefill on each
+   rank's heads, never in decode) and mamba2-370m at full width and
+   depth (Mamba2, 16 of its 32 heads a rank; no port
+   kernel launched), both drawn on the card from a generator of SEED and
+   held to the single-rank port under ``check_serve``'s rule, with K6
+   alone at the MLA ranks' head shard. Each rank's reckoned bytes are
+   logged first (``[mesh]`` lines). A rank that fails, or any mismatch,
+   fails the run.
 
 The phases' walls are logged on one ``[walls]`` line at the end
 (``train``, ``encoder``, ``kvq``, ``mesh`` and ``dryrun`` among them).
@@ -555,9 +565,16 @@ REMAT_MODES = ("full", "none", "dots")
 # rank). Each held to the single-rank port on the card: serving under
 # check_serve's rule, training within TRAIN_LOSS_TOL / TRAIN_NORM_TOL,
 # phi's routing bit for bit with a single rank routing as 2 data ranks
-# (grouped_sharder(2)) on the mesh's gate logits. Results in MESH_DIR
+# (grouped_sharder(2)) on the mesh's gate logits. MLA and Mamba2 on a
+# model axis (ROADMAP M9b.8b), served on 1 x 2 and drawn on the card as
+# phi is: deepseek-v2 at DS_LAYERS layers (64 of its 128 heads, 80 of its
+# 160 experts a rank; S_max 1040 split over the model axis) and mamba2-370m
+# at full depth (16 of its 32 heads a rank). deepseek's ranks
+# draw 21.4 GB each in turn, so they start after the first three runs.
+# Results in MESH_DIR
 MESH_DIR = ROOT / "build" / "mesh"
 MESH_SERVE, MESH_TRAIN, MESH_MOE = (1, 3), (2, 3), (2, 2)
+MESH_MLA, MESH_SSM = (1, 2), (1, 2)
 MESH_TRAIN_STEPS = 2
 # K6's bounds (ms) at the smoke's shapes, from the formula chip_smoke.py
 # held before repro_torch.roofline took it over: (B, Sq, Sk, H, KV, dh,
@@ -4235,19 +4252,27 @@ def smollm_placed(shd, dev, fsdp: bool = True):
     return shard_model(model, shd, device=dev, fsdp=fsdp)
 
 
+def mesh_config(arch: str):
+    """The config a mesh run draws on the card: phi3.5-moe at MOE_LAYERS
+    layers, deepseek-v2 at DS_LAYERS, mamba2-370m whole; full width."""
+    from repro_torch.configs.base import get_config
+    cfg = get_config(arch)
+    return {MOE_ARCH: moe_config, MLA_ARCH: mla_config,
+            SSM_ARCH: lambda c: c}[arch](cfg)
+
+
 def mesh_serve_model(job: dict, shd, dev):
     """smollm-135m from ``numpy_params`` (as ``phase_serve``), or
-    phi3.5-moe at MOE_LAYERS layers drawn on the card from a generator of
-    SEED (the single-rank reference draws the same), placed on ``shd`` in
-    the serving placement (``shard_model(fsdp=False)``: split over model,
+    ``mesh_config``'s model drawn on the card from a generator of SEED (the
+    single-rank reference draws the same), placed on ``shd`` in the
+    serving placement (``shard_model(fsdp=False)``: split over model,
     whole over data): the ranks take turns building the whole model and
     keeping their blocks, so the card holds one whole model at a time."""
-    from repro_torch.configs.base import get_config
     from repro_torch.models.model import init_model, shard_model
     if job["arch"] == SERVE_ARCH:
         return smollm_placed(shd, dev, fsdp=False)
     import torch.distributed as dist
-    cfg = moe_config(get_config(MOE_ARCH))
+    cfg = mesh_config(job["arch"])
     model = None
     for turn in range(shd.mesh.size()):
         if turn == dist.get_rank():
@@ -4324,10 +4349,11 @@ def mesh_run(name: str, kind: str, arch: str, mesh: tuple) -> list:
     return got
 
 
-def mesh_runs_together(*runs) -> list:
-    """``mesh_run`` of each of ``runs`` (its arguments), all at once (one
-    thread each; their ranks share the card); a run that fails fails the
-    phase once all have ended."""
+def start_mesh_runs(*runs):
+    """Start ``mesh_run`` of each of ``runs`` (its arguments), all at once
+    (one thread each; their ranks share the card). Returns ``join()``,
+    which waits for every run and returns their results; a run that fails
+    fails it once all have ended."""
     import threading
     got, errors = [None] * len(runs), []
 
@@ -4340,11 +4366,14 @@ def mesh_runs_together(*runs) -> list:
                for i, a in enumerate(runs)]
     for t in threads:
         t.start()
-    for t in threads:
-        t.join()
-    if errors:
-        raise errors[0]
-    return got
+
+    def join() -> list:
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+        return got
+    return join
 
 
 def mesh_k6(got: list, name: str, n_layers: int, counts: dict, key: str):
@@ -4482,29 +4511,30 @@ def grouped_sharder(n: int):
     return GroupedSharder()
 
 
-def mesh_moe_serve(dev, counts: dict, got: list) -> dict:
-    """phi3.5-moe's 2 x 2 ranks (``got``); then one rank routing as two
-    data ranks (``grouped_sharder(2)``) on the mesh's gate logits: its
-    router gives the mesh's dispatch bit for bit and its logits agree with
-    the mesh's."""
-    from repro_torch.configs.base import get_config
+def mesh_routed_serve(dev, counts: dict, got: list, arch: str,
+                      mesh: tuple) -> dict:
+    """An MoE model's ranks on ``mesh`` (``got``: phi3.5-moe on 2 x 2,
+    deepseek-v2 on 1 x 2); then one rank routing as the mesh's data ranks
+    (``grouped_sharder``) on the mesh's gate logits: its router gives the
+    mesh's dispatch bit for bit and its logits agree with the mesh's."""
     from repro_torch.models.model import init_model
-    cfg = moe_config(get_config(MOE_ARCH))
-    mesh_k6(got, "mesh moe", cfg.n_layers, counts, "mesh_moe_prefill")
+    cfg = mesh_config(arch)
+    tag = f"mesh {cfg.name}"
+    mesh_k6(got, tag, cfg.n_layers, counts, f"mesh_{arch}_prefill")
     heads = sorted((g for g in got if g["model"] == 0),
                    key=lambda g: g["data"])
     for g in got:           # a model row routes alike
         h = heads[g["data"]]
         for a, b in zip(g["routing"], h["routing"]):
             if not torch.equal(a[2], b[2]):
-                raise AssertionError(f"rank {g['rank']} routed otherwise "
-                                     f"than its model row")
+                raise AssertionError(f"{tag} rank {g['rank']} routed "
+                                     f"otherwise than its model row")
     n_calls = len(heads[0]["routing"])
     scores = [torch.cat([h["routing"][i][3] for h in heads])
               for i in range(n_calls)]
     model = init_model(cfg, torch.Generator(device=dev).manual_seed(SEED),
                        device=dev)
-    model.shd = grouped_sharder(MESH_MOE[0])
+    model.shd = grouped_sharder(mesh[0])
     with pinned_routing(scores) as seen:
         ref, t_pre, *_ = port_serve(model, torch.tensor(
             serve_prompts(cfg.vocab), device=dev), SERVE_NEW,
@@ -4512,41 +4542,105 @@ def mesh_moe_serve(dev, counts: dict, got: list) -> dict:
     del model
     torch.cuda.empty_cache()
     if len(seen) != n_calls:
-        raise AssertionError(f"{len(seen)} router calls, the mesh's ranks "
-                             f"made {n_calls}")
+        raise AssertionError(f"{tag}: {len(seen)} router calls, the mesh's "
+                             f"ranks made {n_calls}")
     routed = 0
     for i, (name, cap, disp, _) in enumerate(seen):
         want = torch.cat([h["routing"][i][2] for h in heads])
         if name != heads[0]["routing"][i][0] or cap != \
                 heads[0]["routing"][i][1]:
-            raise AssertionError(f"router call {i}: {name} at capacity "
-                                 f"{cap}, the mesh's "
+            raise AssertionError(f"{tag} router call {i}: {name} at "
+                                 f"capacity {cap}, the mesh's "
                                  f"{heads[0]['routing'][i][:2]}")
         if not torch.equal(disp.cpu(), want):
-            raise AssertionError(f"router call {i} ({name}): the single "
-                                 f"rank's dispatch differs from the mesh's "
-                                 f"in {int((disp.cpu() != want).any(-1).sum())}"
+            raise AssertionError(f"{tag} router call {i} ({name}): the "
+                                 f"single rank's dispatch differs from the "
+                                 f"mesh's in "
+                                 f"{int((disp.cpu() != want).any(-1).sum())}"
                                  f" tokens")
         routed += int(want.sum())
     check = check_serve(mesh_rows(got), [top5_records(lg) for _, lg in ref])
     drift = max(d for *_, d in seen)
     t_mesh = max(g["t_prefill"] for g in got)
-    log(f"[mesh] phi3.5-moe ({cfg.n_layers} layers) serve on 2 x 2: "
-        f"{n_calls} router calls (prefill {cfg.n_layers} auctions of "
-        f"{SERVE_B // 2 * SERVE_S} tokens a group), {routed} decisions, "
-        f"dispatch equal bit for bit; the single rank's own gate logits off "
-        f"the mesh's by {drift:.3g} of their largest; logits against it "
-        f"(check_serve's rule) {check}; prefill {t_mesh * 1e3:.1f} ms "
-        f"(single rank {t_pre * 1e3:.1f} ms); K6 launches per prefill "
+    step_mesh = max(np.mean(g["t_steps"]) for g in got)
+    log(f"[mesh] {cfg.name} ({cfg.n_layers} layers) serve on {mesh[0]} x "
+        f"{mesh[1]}: {n_calls} router calls (prefill {n_calls // SERVE_NEW} "
+        f"auctions of "
+        f"{SERVE_B // mesh[0] * SERVE_S} tokens a group), {routed} "
+        f"decisions, dispatch equal bit for bit; the single rank's own gate "
+        f"logits off the mesh's by {drift:.3g} of their largest; logits "
+        f"against it (check_serve's rule) {check}; prefill "
+        f"{t_mesh * 1e3:.1f} ms (single rank {t_pre * 1e3:.1f} ms), decode "
+        f"{step_mesh * 1e3:.1f} ms a step; K6 launches per prefill "
         f"{[g['c_prefill']['flash_attention_fwd'] for g in got]}")
-    return dict(check=check, routed=routed, drift=drift, prefill_s=t_mesh)
+    return dict(check=check, routed=routed, drift=drift, prefill_s=t_mesh,
+                single_prefill_s=t_pre, decode_step_s=step_mesh)
+
+
+def mesh_ssm_serve(dev, counts: dict, got: list) -> dict:
+    """mamba2-370m's 1 x 2 ranks (``got``) against the single-rank port on
+    the same weights and prompts; no port kernel launched on any rank."""
+    from repro_torch.models.model import init_model
+    cfg = mesh_config(SSM_ARCH)
+    for g in got:
+        require_not_launched(g["c_prefill"], list(g["c_prefill"]),
+                             f"mesh ssm rank {g['rank']} prefill")
+        for c in g["c_steps"]:
+            require_not_launched(c, list(c), f"mesh ssm rank {g['rank']} "
+                                 f"decode step")
+    counts["mesh_ssm_prefill"] = {n: sum(g["c_prefill"][n] for g in got)
+                                  for n in got[0]["c_prefill"]}
+    model = init_model(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                       device=dev)
+    ref, t_pre, t_steps, *_ = port_serve(model, torch.tensor(
+        serve_prompts(cfg.vocab), device=dev), SERVE_NEW,
+        SERVE_S + SERVE_NEW)
+    del model
+    torch.cuda.empty_cache()
+    check = check_serve(mesh_rows(got), [top5_records(lg) for _, lg in ref])
+    t_mesh = max(g["t_prefill"] for g in got)
+    step_mesh = max(np.mean(g["t_steps"]) for g in got)
+    log(f"[mesh] {cfg.name} ({cfg.n_layers} layers) serve on {MESH_SSM[0]} "
+        f"x {MESH_SSM[1]}, {SERVE_NEW} new tokens: against the single-rank "
+        f"port (check_serve's rule) {check}; prefill {t_mesh * 1e3:.1f} ms "
+        f"(single rank {t_pre * 1e3:.1f} ms), decode {step_mesh * 1e3:.1f} "
+        f"ms a step (single rank {np.mean(t_steps) * 1e3:.1f} ms); no port "
+        f"kernel launched")
+    return dict(check=check, prefill_s=t_mesh, single_prefill_s=t_pre,
+                decode_step_s=step_mesh)
+
+
+def mesh_k6_alone(card: str) -> dict:
+    """K6 alone at an MLA rank's prefill on 1 x 2 (SERVE_B x SERVE_S, its
+    64 of deepseek-v2's 128 heads, qk 192 / v 128, causal, float32, scale
+    192 ** -0.5): device ms of one call against its bound."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    cfg = mesh_config(MLA_ARCH)
+    m = cfg.mla
+    H = cfg.n_heads // MESH_MLA[1]
+    qk = m.qk_nope_dim + m.qk_rope_dim
+    dims = (SERVE_B, SERVE_S, SERVE_S, H, H, qk, m.v_dim)
+    q, k, v = flash_inputs(np.random.default_rng(SEED), dims, torch.float32,
+                           torch.device("cuda"))
+    t = time_ms(lambda: flash_attention_fwd(q, k, v, causal=True,
+                                            scale=qk ** -0.5),
+                reps=10, symbol="flash_fwd_")
+    b = flash_bounds(dims, True, torch.float32)
+    log(f"[mesh] K6 alone at an MLA rank's head shard {dims}, causal, "
+        f"float32: {t.ms:.4f} ms a launch ({t.source}), bound "
+        f"{b['bound_ms']:.4f} ms by {b['bound_by']} "
+        f"({t.ms / b['bound_ms']:.2f}x); on {card}")
+    return dict(dims=list(dims), ms=t.ms, bound_ms=b["bound_ms"],
+                bound_by=b["bound_by"])
 
 
 def phase_mesh(dev, counts: dict, card: str) -> dict:
-    """The model meshes (ROADMAP M9b.8) on the one card: each rank's
-    reckoned bytes, then smollm-135m served on 1 x 3, phi3.5-moe served
-    on 2 x 2 and smollm-135m trained on 2 x 3, the 13 ranks at once, each
-    run held to the single-rank port (see MESH_DIR's note)."""
+    """The model meshes (ROADMAP M9b.8, M9b.8b) on the one card: each
+    rank's reckoned bytes, then smollm-135m served on 1 x 3, phi3.5-moe
+    served on 2 x 2 and smollm-135m trained on 2 x 3, the 13 ranks at
+    once; then deepseek-v2 (MLA) and mamba2-370m (Mamba2) served on 1 x 2
+    while the first three are held to the single-rank port; each run held
+    to the single-rank port (see MESH_DIR's note)."""
     from repro_torch.configs.base import get_config
     torch.cuda.empty_cache()
     if torch.backends.cuda.matmul.allow_tf32:
@@ -4554,7 +4648,9 @@ def phase_mesh(dev, counts: dict, card: str) -> dict:
                              "full float32")
     plans = [("serve", get_config(SERVE_ARCH), MESH_SERVE, False),
              ("train", get_config(TRAIN_ARCH), MESH_TRAIN, True),
-             ("moe", moe_config(get_config(MOE_ARCH)), MESH_MOE, False)]
+             ("moe", mesh_config(MOE_ARCH), MESH_MOE, False),
+             ("mla", mesh_config(MLA_ARCH), MESH_MLA, False),
+             ("ssm", mesh_config(SSM_ARCH), MESH_SSM, False)]
     for name, cfg, mesh, train in plans:
         b = mesh_bytes(cfg, mesh, train)
         log(f"[mesh] {name} ({cfg.name}, {mesh[0]} x {mesh[1]}): reckoned "
@@ -4563,14 +4659,29 @@ def phase_mesh(dev, counts: dict, card: str) -> dict:
             + f"; {mesh[0] * mesh[1]} ranks {mesh[0] * mesh[1] * b['total'] / 2**30:.2f}"
             f" GiB of the card's 80 with activations on top")
     smollm_weights()
-    serve, moe, train = mesh_runs_together(
+    t0 = time.perf_counter()
+    serve, moe, train = start_mesh_runs(
         ("serve", "serve", SERVE_ARCH, MESH_SERVE),
         ("moe", "serve", MOE_ARCH, MESH_MOE),
-        ("train", "train", TRAIN_ARCH, MESH_TRAIN))
-    out = {"serve": mesh_smollm_serve(dev, counts, serve),
-           "moe": mesh_moe_serve(dev, counts, moe),
-           "train": mesh_smollm_train(dev, counts, train)}
-    log(f"[mesh] every rank of every run ended with code 0 on {card}")
+        ("train", "train", TRAIN_ARCH, MESH_TRAIN))()
+    t1 = time.perf_counter()
+    join = start_mesh_runs(("mla", "serve", MLA_ARCH, MESH_MLA),
+                           ("ssm", "serve", SSM_ARCH, MESH_SSM))
+    try:
+        out = {"serve": mesh_smollm_serve(dev, counts, serve),
+               "moe": mesh_routed_serve(dev, counts, moe, MOE_ARCH,
+                                        MESH_MOE),
+               "train": mesh_smollm_train(dev, counts, train)}
+    finally:
+        mla, ssm = join()
+    t2 = time.perf_counter()
+    out["mla"] = mesh_routed_serve(dev, counts, mla, MLA_ARCH, MESH_MLA)
+    out["mla"]["k6"] = mesh_k6_alone(card)
+    out["ssm"] = mesh_ssm_serve(dev, counts, ssm)
+    log(f"[mesh] every rank of every run ended with code 0 on {card}; the "
+        f"first three runs {t1 - t0:.1f} s, then deepseek-v2's and "
+        f"mamba2's beside their checks {t2 - t1:.1f} s, their checks "
+        f"{time.perf_counter() - t2:.1f} s")
     return out
 
 
@@ -4672,7 +4783,11 @@ def run_smoke(jobs: list) -> int:
                                     False, torch.float32)["bound_ms"])
     del enc
     timed(walls, "kvq", phase_kvq, dev, counts, card, float_step)
-    timed(walls, "mesh", phase_mesh, dev, counts, card)
+    mesh = timed(walls, "mesh", phase_mesh, dev, counts, card)
+    kernels["flash_attention_fwd"]["mla_mesh_shard"] = dict(
+        mesh["mla"]["k6"], prefill_launches=counts[
+            f"mesh_{MLA_ARCH}_prefill"]["flash_attention_fwd"])
+    del mesh
     dry = timed(walls, "dryrun", phase_dryrun, dev, counts, card, jobs)
     pre = dry["cells"]["prefill_32k"]
     kernels["flash_attention_fwd"]["prefill_32k"] = dict(

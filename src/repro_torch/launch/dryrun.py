@@ -20,10 +20,8 @@ cell is built with random weights on the card and runs for real, counted
 the same way. ``--mesh 16x16`` counts rank 0 of the production mesh
 (``--multi-pod``: 2 x 16 x 16) on a ``fake`` process group: its shards,
 its rows of the batch, its collectives by kind (``mesh`` and ``chips`` in
-the row), on ``meta`` only. MLA (deepseek-v2) and Mamba2 (mamba2-370m,
-jamba) on a model axis are not ported yet: those cells are skipped with
-the reason ``M9b.8b``. ``--n-layers`` cuts the depth. Exits 1 if any
-cell errs.
+the row), on ``meta`` only; a mesh skips the cells one card skips.
+``--n-layers`` cuts the depth. Exits 1 if any cell errs.
 """
 from __future__ import annotations
 
@@ -37,7 +35,6 @@ import dataclasses
 
 from repro_torch.configs.base import get_config
 from repro_torch.launch.specs import SHAPES, build_cell, cell_skip_reason
-from repro_torch.models.model import layer_plan
 from repro_torch.roofline import Roofline, model_flops_for
 from repro_torch.roofline_hlo import analyze
 
@@ -48,18 +45,6 @@ LM_ARCHS = [a for a in [
 
 
 MESHES = ("1", "16x16", "2x16x16")
-
-
-def mesh_skip_reason(cfg, mesh: str) -> str | None:
-    """Why a cell is not counted on ``mesh``: MLA and Mamba2 on a model
-    axis above 1 (ROADMAP M9b.8b)."""
-    if mesh == "1":
-        return None
-    mixers = {m for m, _ in layer_plan(cfg)}
-    if cfg.attn_type == "mla" or "mamba" in mixers:
-        return ("M9b.8b: MLA and Mamba2 on a model axis above 1 are not "
-                "ported yet")
-    return None
 
 
 def run_cell(arch: str, shape: str, *, device: str = "meta",
@@ -77,7 +62,7 @@ def run_cell(arch: str, shape: str, *, device: str = "meta",
     cfg = get_config(arch)
     if n_layers:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
-    skip = cell_skip_reason(cfg, shape) or mesh_skip_reason(cfg, mesh)
+    skip = cell_skip_reason(cfg, shape)
     if skip:
         row = {"arch": arch, "shape": shape, "status": "skip",
                "reason": skip}

@@ -131,12 +131,11 @@ def build_model(cfg: ModelConfig, device, dtype,
 
 
 def _rows(B: int, shd: Sharder) -> int:
-    """This rank's rows of a batch of ``B`` (all of them without a mesh)."""
+    """This rank's rows of a batch of ``B``: all of them without a mesh or
+    where the data-parallel ranks do not divide them (replicated, as
+    ``Sharder.batch_rows``)."""
     n = shd.data_groups if shd.mesh is not None else 1
-    if B % n:
-        raise ValueError(f"a batch of {B} rows does not split over {n} "
-                         f"data-parallel ranks")
-    return B // n
+    return B if B % n else B // n
 
 
 def _ids(shape, vocab: int, device, gen) -> torch.Tensor:

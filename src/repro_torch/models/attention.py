@@ -287,6 +287,45 @@ def _seq_block(cache, shd: Sharder) -> tuple[int, int, bool]:
     return i * T, T, n > 1
 
 
+def _write_decode(cache, rows, shd: Sharder):
+    """Decode: each of ``rows`` (one position) written into its buffer of
+    ``cache`` at ``cache.length``, clamped into the buffer as
+    ``dynamic_update_slice`` clamps the start; on a split sequence only
+    the rank holding that position writes it (a masked write, no host
+    sync). Returns the buffers and ``_seq_block``'s ``(first position,
+    positions, split)``."""
+    c0, Tl, split = _seq_block(cache, shd)
+    T = Tl * shd.size("model") if split else Tl
+    at = cache.length.clamp(max=T - 1).long().reshape(1) - c0
+    if split:
+        own = ((at >= 0) & (at < Tl)).reshape(())
+        at = at.clamp(0, Tl - 1)
+    bufs = cache[:len(rows)]
+    for buf, row in zip(bufs, rows):
+        row = row.to(buf.dtype)
+        if split:
+            row = torch.where(own, row, buf.index_select(1, at))
+        buf.index_copy_(1, at, row)
+    return bufs, (c0, Tl, split)
+
+
+def _write_prompt(cache, rows, shd: Sharder):
+    """Prefill: the prompt's ``rows`` ``(B, S, ...)`` written at this
+    rank's positions of ``cache``'s buffers. Returns the new cache (the
+    same buffers, length S)."""
+    c0, Tl, split = _seq_block(cache, shd)
+    T = Tl * shd.size("model") if split else Tl
+    S = rows[0].shape[1]
+    if S > T:
+        raise ValueError(f"a prompt of {S} tokens does not fit a cache of "
+                         f"{T}")
+    n = max(0, min(S - c0, Tl))
+    for buf, row in zip(cache, rows):
+        buf[:, :n] = row[:, c0:c0 + n].to(buf.dtype)
+    return type(cache)(*cache[:len(rows)], torch.tensor(
+        S, dtype=torch.int32, device=rows[0].device))
+
+
 def gqa_apply(p: GQA, x, cfg, shd: Sharder = NO_MESH, *, positions,
               cache: Optional[KVCache | KVCacheQ] = None, decode: bool):
     """Returns (out, new_cache). Prefill: decode=False (cache optional).
@@ -357,25 +396,12 @@ def gqa_apply(p: GQA, x, cfg, shd: Sharder = NO_MESH, *, positions,
         return shd.gather(t, 2) if kv_local else t
 
     if cache is not None:
-        c0, Tl, split = _seq_block(cache, shd)
-        T = Tl * m if split else Tl
         rows = (*_quant_kv(whole(k)), *_quant_kv(whole(v))) if quant \
             else (whole(k), whole(v))
     if decode:
         if cache is None or S != 1:
             raise ValueError("decode takes one token and a cache")
-        # dynamic_update_slice clamps the start into the buffer; so does
-        # this, then the rank holding that position writes it
-        at = cache.length.clamp(max=T - 1).long().reshape(1) - c0
-        if split:
-            own = ((at >= 0) & (at < Tl)).reshape(())
-            at = at.clamp(0, Tl - 1)
-        bufs = cache[:len(rows)]
-        for buf, row in zip(bufs, rows):
-            row = row.to(buf.dtype)
-            if split:
-                row = torch.where(own, row, buf.index_select(1, at))
-            buf.index_copy_(1, at, row)
+        bufs, (c0, Tl, split) = _write_decode(cache, rows, shd)
         if quant:
             kc = cache.k_q.float() * cache.k_s
             vc = cache.v_q.float() * cache.v_s
@@ -412,17 +438,8 @@ def gqa_apply(p: GQA, x, cfg, shd: Sharder = NO_MESH, *, positions,
             kq, vq = shd.enter(k, 2, kv0, nkv), shd.enter(v, 2, kv0, nkv)
         o = _flash_attend(q, kq, vq, causal=cfg.causal, scale=scale,
                           chunk=KV_CHUNK).reshape(B, S, Hl * dh)
-        if cache is None:
-            new_cache = None
-        else:       # the prompt's rows at this rank's positions
-            if S > T:
-                raise ValueError(f"a prompt of {S} tokens does not fit a "
-                                 f"cache of {T}")
-            n = max(0, min(S - c0, Tl))
-            for buf, row in zip(cache, rows):
-                buf[:, :n] = row[:, c0:c0 + n].to(buf.dtype)
-            new_cache = type(cache)(*cache[:len(rows)], torch.tensor(
-                S, dtype=torch.int32, device=x.device))
+        new_cache = None if cache is None else _write_prompt(cache, rows,
+                                                             shd)
     if heads:
         return shd.reduce(p.wo(o)), new_cache
     if q_split:         # every head here, wo's rows split
@@ -464,15 +481,10 @@ class MLA(nn.Module):
         self.wv_b = param(m.kv_lora_rank, H, m.v_dim)
         self.wo = linear(H * m.v_dim, D, device, dtype)
 
-    def forward(self, x, *, positions, cache=None, decode: bool, shd=None):
-        """On a mesh the parameters come gathered over data; a model axis
-        above 1 is not ported."""
-        if shd is not None and shd.size("model") > 1:
-            raise NotImplementedError(
-                "MLA on a model axis above 1 is not ported yet "
-                "(ROADMAP M9b.8b)")
-        return mla_apply(self, x, self.cfg, positions=positions, cache=cache,
-                         decode=decode)
+    def forward(self, x, *, positions, cache=None, decode: bool,
+                shd: Sharder = NO_MESH):
+        return mla_apply(self, x, self.cfg, shd, positions=positions,
+                         cache=cache, decode=decode)
 
 
 def init_mla(p: MLA, generator: torch.Generator) -> MLA:
@@ -493,19 +505,52 @@ def init_mla(p: MLA, generator: torch.Generator) -> MLA:
     return p
 
 
-def mla_apply(p: MLA, x, cfg, *, positions, cache: Optional[KVCache] = None,
-              decode: bool):
+def mla_apply(p: MLA, x, cfg, shd: Sharder = NO_MESH, *, positions,
+              cache: Optional[KVCache] = None, decode: bool):
     """Returns (out, new_cache). Prefill: decode=False (cache optional).
 
     The JAX ``mla_apply``'s operation order. The scale is that of the
-    query-key width, ``(nope + rope) ** -0.5``, not ``cfg.dh``'s."""
-    m, H = cfg.mla, cfg.n_heads
-    B, S, D = x.shape
-    nope, rope, vd, kvl = (m.qk_nope_dim, m.qk_rope_dim, m.v_dim,
-                           m.kv_lora_rank)
-    scale = (nope + rope) ** -0.5
+    query-key width, ``(nope + rope) ** -0.5``, not ``cfg.dh``'s; RoPE
+    touches only the last ``rope`` of each head's query-key columns.
 
-    q = p.wq_b(rmsnorm(p.wq_a(x), p.q_norm)).reshape(B, S, H, nope + rope)
+    One path for one card and a mesh, as ``gqa_apply``. On a model axis of
+    m ranks (rank r) where m divides H, rank r runs heads ``[r H / m,
+    (r + 1) H / m)``: its block of ``wq_b``'s columns, of ``wk_b``'s and
+    ``wv_b``'s heads and of ``wo``'s rows. ``c_kv`` and ``k_rope`` come
+    from ``wkv_a``, which ``model`` does not split, so every rank makes
+    them whole; the prefill expands keys and values for the rank's heads
+    only and K6 runs on them; the ranks' ``wo`` partials are summed
+    (``reduce``). Where m does not divide H every rank runs every head on
+    queries gathered from its block of ``wq_b``'s columns (where m divides
+    them), and multiplies its block of ``wo``'s rows (where m divides
+    them).
+
+    The caches (``c_kv`` ``(B, S_max, kv_lora)``, ``k_rope`` ``(B, S_max,
+    rope)``) split their sequence over ``model`` where m divides
+    ``S_max``: the prompt's rows and each decode row go to the rank that
+    holds their positions (``_write_prompt``, ``_write_decode``). The
+    absorbed decode against a split sequence is a flash-decoding combine:
+    every head's ``q_abs`` and rope query (gathered) scored against the
+    rank's positions, the ranks' maximum of each row (all-reduce max),
+    then ``[sum p c_kv, sum p]`` ``(B, 1, H, kv_lora + 1)`` summed in one
+    all-reduce; the quotient's rank's heads go through its block of
+    ``wv_b``. Against a whole cache each rank attends its own heads."""
+    mc, H = cfg.mla, cfg.n_heads
+    B, S, D = x.shape
+    nope, rope, vd, kvl = (mc.qk_nope_dim, mc.qk_rope_dim, mc.v_dim,
+                           mc.kv_lora_rank)
+    scale = (nope + rope) ** -0.5
+    m, r = shd.size("model"), shd.axis("model").index
+    heads = shd.tp(H)           # wk_b and wv_b split: H / m heads a rank
+    Hl = H // m if heads else H
+    h0 = r * Hl if heads else 0
+    q_split, o_split = shd.tp(H * (nope + rope)), shd.tp(H * vd)
+
+    qa = rmsnorm(p.wq_a(x), p.q_norm)
+    q = p.wq_b(shd.enter(qa) if q_split else qa)
+    if q_split and not heads:
+        q = shd.gather(q, -1)
+    q = q.reshape(B, S, Hl, nope + rope)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
 
@@ -513,41 +558,52 @@ def mla_apply(p: MLA, x, cfg, *, positions, cache: Optional[KVCache] = None,
     c_kv = rmsnorm(kv_a[..., :kvl], p.kv_norm)
     k_rope = apply_rope(kv_a[..., None, kvl:], positions,
                         cfg.rope_theta)            # (B, S, 1, rope)
+    rows = (c_kv, k_rope[:, :, 0])
 
     if decode:
         if cache is None or S != 1:
             raise ValueError("decode takes one token and a cache")
-        T = cache.k.shape[1]
-        # dynamic_update_slice clamps the start into the buffer; so does this
-        at = cache.length.clamp(max=T - 1).long().reshape(1)
-        ckv = cache.k.index_copy_(1, at, c_kv.to(cache.k.dtype))
-        krc = cache.v.index_copy_(1, at, k_rope[:, :, 0].to(cache.v.dtype))
+        (ckv, krc), (c0, Tl, split) = _write_decode(cache, rows, shd)
         # absorbed attention: score against the compressed cache directly
         q_abs = torch.einsum("bqhn,khn->bqhk", q_nope.float(),
                              p.wk_b.float())
+        q_rope = q_rope.float()
+        if split and heads:         # every head, against this rank's rows
+            q_abs, q_rope = shd.gather(q_abs, 2), shd.gather(q_rope, 2)
         ckv32 = ckv.float()
         s = (torch.einsum("bqhk,btk->bhqt", q_abs, ckv32)
-             + torch.einsum("bqhr,btr->bhqt", q_rope.float(), krc.float()))
+             + torch.einsum("bqhr,btr->bhqt", q_rope, krc.float()))
         s = s * scale
-        valid = torch.arange(T, device=x.device) <= cache.length
-        pr = torch.softmax(torch.where(valid, s, NEG_INF), dim=-1)
-        ctx = torch.einsum("bhqt,btk->bqhk", pr, ckv32)
+        valid = c0 + torch.arange(Tl, device=x.device) <= cache.length
+        if split:
+            s = torch.where(valid, s, NEG_INF)
+            pr = torch.exp(s - shd.all_max(s.amax(-1, keepdim=True)))
+            part = shd.reduce(torch.cat(
+                [torch.einsum("bhqt,btk->bqhk", pr, ckv32),
+                 pr.sum(-1).permute(0, 2, 1)[..., None]], -1))
+            ctx = (part[..., :kvl] / part[..., kvl:])[:, :, h0:h0 + Hl]
+        else:
+            pr = torch.softmax(torch.where(valid, s, NEG_INF), dim=-1)
+            ctx = torch.einsum("bhqt,btk->bqhk", pr, ckv32)
         o = torch.einsum("bqhk,khv->bqhv", ctx, p.wv_b.float())
-        o = o.reshape(B, 1, H * vd).to(x.dtype)
+        o = o.reshape(B, 1, Hl * vd).to(x.dtype)
         new_cache = KVCache(ckv, krc, cache.length + 1)
     else:
-        # prefill: expand per-head K/V (the standard MLA formulation)
-        k_nope = torch.einsum("btk,khn->bthn", c_kv, p.wk_b)
-        v = torch.einsum("btk,khv->bthv", c_kv, p.wv_b)
-        k = torch.cat([k_nope, k_rope.expand(B, S, H, rope)], dim=-1)
+        # prefill: expand per-head K/V (the standard MLA formulation), for
+        # this rank's heads
+        ckv_h, kr_h = ((shd.enter(c_kv), shd.enter(k_rope)) if heads
+                       else (c_kv, k_rope))
+        k_nope = torch.einsum("btk,khn->bthn", ckv_h, p.wk_b)
+        v = torch.einsum("btk,khv->bthv", ckv_h, p.wv_b)
+        k = torch.cat([k_nope, kr_h.expand(B, S, Hl, rope)], dim=-1)
         qf = torch.cat([q_nope, q_rope], dim=-1)
         o = _flash_attend(qf, k, v, causal=cfg.causal, scale=scale,
-                          chunk=KV_CHUNK).reshape(B, S, H * vd)
-        if cache is None:
-            new_cache = None
-        else:                   # prefill: write into the S_max buffer
-            cache.k[:, :S] = c_kv.to(cache.k.dtype)
-            cache.v[:, :S] = k_rope[:, :, 0].to(cache.v.dtype)
-            new_cache = KVCache(cache.k, cache.v, torch.tensor(
-                S, dtype=torch.int32, device=x.device))
+                          chunk=KV_CHUNK).reshape(B, S, Hl * vd)
+        new_cache = None if cache is None else _write_prompt(cache, rows,
+                                                             shd)
+    if heads:
+        return shd.reduce(p.wo(o)), new_cache
+    if o_split:         # every head here, wo's rows split
+        n = H * vd // m
+        return shd.reduce(p.wo(shd.enter(o, -1, r * n, n))), new_cache
     return p.wo(o), new_cache

@@ -364,14 +364,25 @@ class Sharder:
 
     def batch_rows(self, t: torch.Tensor) -> torch.Tensor:
         """This rank's rows of a whole batch ``t`` (dim 0 over the batch
-        axes); the batch must divide into them."""
-        n = self.data_groups
-        if self.mesh is None or n == 1:
+        axes), its spec as ``.spec``. A batch that does not divide over the
+        data-parallel ranks is replicated, as the reference replicates a
+        dim the mesh does not divide: every data rank takes all of it
+        (``row_replicas``)."""
+        if self.mesh is None or self.data_groups == 1:
             return t
-        if t.shape[0] % n:
-            raise ValueError(f"a batch of {t.shape[0]} rows does not split "
-                             f"over {n} data-parallel ranks")
-        return self.shard(t, (self._axes("batch", t.shape[0]),))
+        spec = (self._axes("batch", t.shape[0]),)
+        rows = self.shard(t, spec)[:]       # a view of its own
+        rows.spec = spec
+        return rows
+
+    def row_replicas(self, rows: torch.Tensor) -> int:
+        """How many data-parallel ranks hold the same ``rows`` of a batch
+        (``batch_rows``): all of them where the batch was replicated, else
+        one."""
+        spec = getattr(rows, "spec", None)
+        if self.mesh is None or spec is None or spec[0] is not None:
+            return 1
+        return self.data_groups
 
     def barrier(self) -> None:
         """Wait for every rank of the mesh (an all-reduce of a zero)."""

@@ -32,8 +32,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.layers import (dense_std, depth_scaled_std, linear,
-                                       normal_, rmsnorm)
+from repro_torch.models.layers import (NO_MESH, Sharder, dense_std,
+                                       depth_scaled_std, linear, normal_,
+                                       rmsnorm)
 
 
 class SSMCache(NamedTuple):
@@ -74,15 +75,10 @@ class Mamba(nn.Module):
         self.out_proj = linear(di, D, device, dtype)
 
     def forward(self, x, *, positions=None, cache=None, decode: bool,
-                shd=None):
+                shd: Sharder = NO_MESH):
         """``positions`` is taken for the mixers' common signature and not
-        used: the SSM has no positional input. On a mesh the parameters
-        come gathered over data; a model axis above 1 is not ported."""
-        if shd is not None and shd.size("model") > 1:
-            raise NotImplementedError(
-                "Mamba2 on a model axis above 1 is not ported yet "
-                "(ROADMAP M9b.8b)")
-        return mamba_apply(self, x, self.cfg, cache=cache, decode=decode)
+        used: the SSM has no positional input."""
+        return mamba_apply(self, x, self.cfg, shd, cache=cache, decode=decode)
 
 
 def init_mamba(p: Mamba, generator: torch.Generator) -> Mamba:
@@ -216,44 +212,97 @@ def _ssd_chunked(xh, dt, A, Bm, Cm, chunk, init_state=None):
     return y, h
 
 
-def mamba_apply(p: Mamba, x, cfg, *, cache: Optional[SSMCache] = None,
-                decode: bool = False):
+def mamba_apply(p: Mamba, x, cfg, shd: Sharder = NO_MESH, *,
+                cache: Optional[SSMCache] = None, decode: bool = False):
     """Returns (out, new_cache). Prefill (``decode=False``) starts from a
     zero state and returns a new ``SSMCache`` only where a cache was
     given (its contents are not read); decode takes one token and the
-    cache."""
+    cache.
+
+    One path for one card and a mesh. On a model axis of m ranks (rank r;
+    every collective below the identity where m is 1) each leaf keeps the
+    reference's placement, split where m divides its ``"tp"`` dim:
+    ``in_proj``'s columns cut the concatenation ``[z | x | B | C | dt]``
+    evenly, which does not line up with heads, so each rank multiplies its
+    block and the ranks gather the whole activation. Each then runs the
+    depthwise conv on its block of the ``C = di + 2 N`` channels of
+    ``xbc`` (those of its ``conv_w``, ``conv_b`` and conv cache) and the
+    ranks gather the result. Where m divides the H heads, rank r runs
+    heads ``[r H / m, (r + 1) H / m)``, exactly its block of ``di`` (that
+    of ``norm_g`` and ``out_proj``'s rows): the prefill's chunked SSD on
+    them, the state gathered once into the cache's whole-over-``model``
+    leaf; decode updates every head's state (a few elementwise ops on the
+    gathered ``xbc`` and ``dt``, so the whole state stays current with no
+    gather) and reads out the rank's. The gate ``y * silu(z)`` is the
+    rank's block of ``di``, the gated RMSNorm's sum of squares an
+    all-reduce, and the ranks' ``out_proj`` partials are summed. Where m
+    does not divide H every rank runs every head, and takes its block of
+    the normed output where m divides ``di``."""
     s, D = cfg.ssm, cfg.d_model
     di, N, H, P = s.d_inner(D), s.d_state, s.n_heads(D), s.head_dim
+    C = di + 2 * N
     B, S, _ = x.shape
+    m, r = shd.size("model"), shd.axis("model").index
+    heads = shd.tp(H)           # this rank's heads: its block of di
+    Hl = H // m if heads else H
+    h0 = r * Hl if heads else 0
+    in_split, conv_split = shd.tp(2 * di + 2 * N + H), shd.tp(C)
 
-    zxbcdt = p.in_proj(x)
-    z, xbc, dt_raw = torch.split(zxbcdt, [di, di + 2 * N, H], dim=-1)
+    def mine(t, dim, lo, n):
+        """``t``'s block ``[lo, lo + n)`` of ``dim`` for this rank's heads
+        (``enter``: its gradient summed over the ranks)."""
+        return shd.enter(t, dim, lo, n) if heads else t.narrow(dim, lo, n)
+
+    zxbcdt = p.in_proj(shd.enter(x) if in_split else x)
+    if in_split:
+        zxbcdt = shd.gather(zxbcdt, -1)
+    z, xbc, dt_raw = torch.split(zxbcdt, [di, C, H], dim=-1)
 
     if decode and (cache is None or S != 1):
         raise ValueError("decode takes one token and a cache")
+    if conv_split:              # this rank's channels
+        xbc = shd.enter(xbc, -1, r * (C // m), C // m)
     xbc, new_conv = _causal_conv(xbc, p.conv_w, p.conv_b,
                                  cache.conv if decode else None)
-    xh, Bm, Cm = torch.split(xbc, [di, N, N], dim=-1)
-    xh = xh.reshape(B, S, H, P)
-    dt = F.softplus(dt_raw.float() + p.dt_bias)
-    A = torch.exp(p.A_log.float())                # (H,) positive
+    if conv_split:
+        xbc = shd.gather(xbc, -1)
 
-    if decode:
+    if decode:                  # every head's state, this rank's output
+        xh, Bm, Cm = torch.split(xbc, [di, N, N], dim=-1)
+        xh = xh.reshape(B, S, H, P)
+        dt = F.softplus(dt_raw.float() + p.dt_bias)
+        A = torch.exp(p.A_log.float())                        # (H,) positive
         dA = torch.exp(-dt[:, 0] * A[None, :])                # (B,H)
         upd = torch.einsum("bh,bn,bhp->bhpn", dt[:, 0], Bm[:, 0].float(),
                            xh[:, 0].float())
         h_new = cache.state * dA[:, :, None, None] + upd
         y = torch.einsum("bn,bhpn->bhp", Cm[:, 0].float(),
-                         h_new)[:, None]                      # (B,1,H,P)
+                         h_new[:, h0:h0 + Hl])[:, None]       # (B,1,Hl,P)
+        xh = xh[:, :, h0:h0 + Hl]
         new_cache = SSMCache(h_new, new_conv, cache.length + 1)
     else:
+        xh = mine(xbc, -1, h0 * P, Hl * P).reshape(B, S, Hl, P)
+        Bm, Cm = torch.split(mine(xbc, -1, di, 2 * N), [N, N], dim=-1)
+        dt = F.softplus(mine(dt_raw, -1, h0, Hl).float()
+                        + mine(p.dt_bias, 0, h0, Hl))
+        A = torch.exp(mine(p.A_log, 0, h0, Hl).float())       # positive
         y, hT = _ssd_chunked(xh.float(), dt, A, Bm.float(), Cm.float(),
                              min(s.chunk, S))
-        new_cache = SSMCache(hT, new_conv, torch.tensor(
-            S, dtype=torch.int32, device=x.device)) \
+        new_cache = SSMCache(shd.gather(hT, 1) if heads else hT, new_conv,
+                             torch.tensor(S, dtype=torch.int32,
+                                          device=x.device)) \
             if cache is not None else None
 
-    y = y + xh.float() * p.D[None, None, :, None]
-    y = y.reshape(B, S, di).to(x.dtype)
-    y = rmsnorm(y * F.silu(z), p.norm_g)
-    return p.out_proj(y), new_cache
+    y = y + xh.float() * mine(p.D, 0, h0, Hl)[None, None, :, None]
+    y = y.reshape(B, S, Hl * P).to(x.dtype) * F.silu(
+        mine(z, -1, h0 * P, Hl * P))
+    if heads:       # the gated RMSNorm over di: the ranks' sums of squares
+        y32 = y.float()
+        ss = shd.enter(shd.reduce(torch.sum(y32 * y32, -1, keepdim=True)))
+        y = (y32 * torch.rsqrt(ss / di + 1e-6)).to(x.dtype) * p.norm_g
+        return shd.reduce(p.out_proj(y)), new_cache
+    if shd.tp(di):  # every head here, norm_g and out_proj's rows split
+        n = di // m
+        y = shd.enter(rmsnorm(y, 1.0), -1, r * n, n) * p.norm_g
+        return shd.reduce(p.out_proj(y)), new_cache
+    return p.out_proj(rmsnorm(y, p.norm_g)), new_cache

@@ -88,7 +88,11 @@ def loss_fn(model: Model, batch, z_loss: float = 1e-4,
                           device=labels.device)
     tokens = shd.reduce_batch(torch.sum(mask))
     loss = torch.sum(per_tok * mask) / torch.clamp_min(tokens, 1.0)
-    return loss, {"loss": shd.reduce_batch(loss), "tokens": tokens}
+    # a replicated batch (``Sharder.batch_rows``) is counted once per data
+    # rank: the ranks' losses still sum to its mean, and their gradients
+    # (summed over the data ranks) to its gradient
+    return loss, {"loss": shd.reduce_batch(loss),
+                  "tokens": tokens / shd.row_replicas(labels)}
 
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):

@@ -55,20 +55,20 @@ def test_multi_pod_cell():
     assert r["coll_breakdown"]["all-reduce"] > 0
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "mamba2-370m",
-                                  "jamba-v0.1-52b"])
-def test_mla_and_mamba_skip_on_a_mesh(arch):
-    r = dryrun.run_cell(arch, "decode_32k", mesh="16x16", verbose=False)
-    assert r["status"] == "skip" and r["reason"].startswith("M9b.8b"), r
-    with pytest.raises(NotImplementedError, match="M9b.8b"):
-        from repro_torch.models.model import shard_model
-        cfg = smoke_variant(get_config(arch))
-        model = shard_model(build_model(cfg, "meta", torch.bfloat16),
-                            Sharder(make_production_mesh()))
-        caches = init_caches(cfg, 16, 64, device="meta", shd=model.shd)
-        analyze(make_prefill_step(model),
-                torch.empty((1, 64), dtype=torch.int32, device="meta"),
-                caches)
+@pytest.mark.parametrize("arch,n_layers", [("deepseek-v2-236b", 2),
+                                           ("mamba2-370m", 2),
+                                           ("jamba-v0.1-52b", 8)])
+def test_mla_and_mamba_count_on_a_mesh(arch, n_layers):
+    """MLA and Mamba2 on the model axis of 16 x 16 (depth cut): counted,
+    their partial outputs summed over ``model``, and each card does less
+    than one card doing it all."""
+    r = dryrun.run_cell(arch, "decode_32k", mesh="16x16", n_layers=n_layers,
+                        verbose=False)
+    assert r["status"] == "ok", r
+    assert r["coll_breakdown"]["all-reduce"] > 0
+    one = dryrun.run_cell(arch, "decode_32k", n_layers=n_layers,
+                          verbose=False)
+    assert r["flops_per_chip"] < one["flops_per_chip"]
 
 
 def test_production_meshes_and_batch_spec():
@@ -105,24 +105,36 @@ def _fake_2x2():
     return init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
 
 
-def test_prefill_collective_bytes_follow_the_placements():
-    """smollm's smoke variant (4 heads over 2 kv heads of 32, d_model and
-    vocab 128, d_ff 256, tied embedding), prefill of 4 x 16 into caches of
-    32, bf16, on a 2 x 2 mesh: rank 0's collectives, by kind, are
+@pytest.mark.parametrize("arch", ["smollm-135m", "deepseek-v2-236b",
+                                  "mamba2-370m"])
+def test_prefill_collective_bytes_follow_the_placements(arch):
+    """The smoke variant (d_model and vocab 128, 4 layers), prefill of 4 x
+    16 into caches of 32, bf16, on a 2 x 2 mesh: rank 0's collectives, by
+    kind, are
 
     * all-gather: every parameter with a ``"fsdp"`` dim, its data blocks
-      made whole (its model block's numel x 2) at each use: once, but the
-      tied embedding twice (the lookup and the logits);
-      per layer k and v of every kv head for the caches (2 x rows x 16 x 2
-      x 32); the last logits over the vocabulary (rows x 128);
-    * all-reduce: the embedding's rows summed over the vocabulary's
-      blocks, and per layer the attention's and the MLP's partial outputs
-      (rows x 16 x 128 each);
+      made whole (its model block's numel x 2) at each use: once, but a
+      tied embedding twice (the lookup and the logits); the last logits
+      over the vocabulary (rows x 128); and per layer
+      - smollm (4 heads over 2 kv heads of 32, d_ff 256): k and v of every
+        kv head for the caches (2 x rows x 16 x 2 x 32);
+      - deepseek (MLA, 2 of its 4 heads a rank; a dense first layer, then
+        4 routed experts and 2 shared): none, its caches whole over heads;
+      - mamba2 (8 heads of 32, d_state 16): ``in_proj``'s output (rows x
+        16 x 552), the conv's (rows x 16 x 288) and the final state
+        (rows x 8 x 32 x 16, float32);
+    * all-reduce: the embedding's rows summed over the vocabulary's blocks
+      (rows x 16 x 128) and the mixers' and FFNs' partial outputs, the
+      same size each: smollm's attention and MLP, deepseek's MLA, dense
+      MLP, routed experts and shared experts; mamba2's ``out_proj``, and
+      its gated norm's sums of squares (rows x 16, float32);
     * reduce-scatter, all-to-all: none (no backward);
 
-    rows = 2 (4 over 2 data ranks), every element 2 bytes."""
+    rows = 2 (4 over 2 data ranks), every element 2 bytes but where
+    said."""
+    from repro_torch.models.model import layer_plan
     shd = Sharder(_fake_2x2())
-    cfg = smoke_variant(get_config("smollm-135m"))
+    cfg = smoke_variant(get_config(arch))
     model = build_model(cfg, "meta", torch.bfloat16, shd)
     B, S, rows, el = 4, 16, 2, 2
     caches = init_caches(cfg, B, 32, dtype=torch.bfloat16, device="meta",
@@ -134,12 +146,27 @@ def test_prefill_collective_bytes_follow_the_placements():
     params = [(n, p) for n, p in model.named_parameters()
               if "fsdp" in axes[n]]
     gather = sum(p.numel() * 2 for _, p in params)   # data blocks whole
-    gather += model.embed.numel() * 2                   # the logits' use
-    gather += cfg.n_layers * 2 * rows * S * cfg.n_kv_heads * cfg.dh
+    if cfg.tie_embeddings:
+        gather += model.embed.numel() * 2               # the logits' use
     gather += rows * cfg.vocab
-    reduce = rows * S * cfg.d_model * (1 + 2 * cfg.n_layers)
-    assert acc["collectives"] == {"all-gather": gather * el,
-                                  "all-reduce": reduce * el}
+    partials = 1                                        # the embedding
+    gather_f32 = reduce_f32 = 0
+    for mixer, ffn in layer_plan(cfg):
+        if mixer == "mamba":
+            s = cfg.ssm
+            di, N = s.d_inner(cfg.d_model), s.d_state
+            H = s.n_heads(cfg.d_model)
+            gather += rows * S * (2 * di + 2 * N + H + di + 2 * N)
+            gather_f32 += rows * H * s.head_dim * N
+            reduce_f32 += rows * S
+        elif cfg.attn_type != "mla":
+            gather += 2 * rows * S * cfg.n_kv_heads * cfg.dh
+        partials += 1 + (ffn is not None) + (
+            ffn == "moe" and cfg.moe.n_shared > 0)
+    reduce = rows * S * cfg.d_model * partials
+    assert acc["collectives"] == {
+        "all-gather": gather * el + gather_f32 * 4,
+        "all-reduce": reduce * el + reduce_f32 * 4}
     assert math.prod(model.embed.shape) * 4 == cfg.vocab * cfg.d_model
 
 

@@ -111,8 +111,9 @@ def _key(case):
     axis)."""
     kind, mesh, arch, over, extra = ranks.CASES[case]
     groups = len(ranks.MESHES[mesh]) if ranks.config(arch).moe else 1
-    return (arch, tuple(sorted(over.items())), groups,
-            extra.get("S_max", ranks.S + ranks.NEW))
+    return (arch, repr(sorted(over.items())), groups,
+            extra.get("S_max", ranks.S + ranks.NEW),
+            extra.get("batch", ranks.TRAIN_B))
 
 
 def _jax(case):
@@ -121,7 +122,7 @@ def _jax(case):
     if jcfg.moe is not None:
         jcfg = dataclasses.replace(jcfg, moe=dataclasses.replace(
             jcfg.moe, router="flow"))
-    jcfg = dataclasses.replace(jcfg, **over)
+    jcfg = ranks.replaced(jcfg, over)
     cfg = ranks.config(arch, **over)
     params = jax.tree.map(jnp.asarray, numpy_params(cfg, 0))
     axes = jmodel.init_model(jcfg, jax.random.PRNGKey(0))[1]
@@ -192,22 +193,34 @@ def test_serve_matches_jax(out, case):
 
 def test_caches_split_where_the_mesh_divides_them(out):
     """S_max = 20 splits the caches' sequence over the model axis (the
-    flash-decoding combine); 21 leaves it whole on every rank."""
+    flash-decoding combine), GQA's and MLA's (``c_kv``); 21 leaves it
+    whole on every rank."""
     assert _load(out, "smollm_serve_2x2", 0)["seq_split"] == "model"
     assert _load(out, "smollm_serve_2x2_whole_cache", 0)["seq_split"] is None
+    for rank in range(4):
+        assert _load(out, "deepseek_serve_1x4", rank)["seq_split"] == "model"
+        assert _load(out, "deepseek_serve_2x2_whole_cache",
+                     rank)["seq_split"] is None
+    assert _load(out, "deepseek_serve_1x2", 0)["seq_split"] == "model"
 
 
-@pytest.mark.parametrize("case", ["phi_serve_2x1", "phi_serve_2x2"])
+@pytest.mark.parametrize("case", ["phi_serve_2x1", "phi_serve_2x2",
+                                  "deepseek_serve_1x2", "deepseek_serve_1x4",
+                                  "deepseek_serve_2x2_whole_cache"])
 def test_phi_routing_bit_for_bit(out, case):
     """Each rank routed one group, its rows of the batch, at the group's
     capacity; the JAX package's router on that rank's gate logits gives
-    its dispatch bit for bit, and the ranks of a model row agree."""
-    cfg = ranks.config("phi3.5-moe-42b-a6.6b")
+    its dispatch bit for bit, and the ranks of a model row agree. phi's
+    MoE layers and deepseek's (after its dense first layer, with 2 shared
+    experts)."""
+    from repro_torch.models.model import layer_plan
+    cfg = ranks.config(ranks.CASES[case][2])
+    n_moe = sum(ffn == "moe" for _, ffn in layer_plan(cfg))
     heads, grid = _data_ranks(case)
     Tg = ranks.B // len(grid) * ranks.S
     for row in grid:
         seen = [_load(out, case, r)["routing"] for r in row]
-        assert len(seen[0]) == cfg.n_layers * ranks.NEW
+        assert len(seen[0]) == n_moe * ranks.NEW
         for calls in seen[1:]:
             for a, b in zip(seen[0], calls):
                 assert torch.equal(a[3], b[3])
@@ -225,10 +238,11 @@ def test_phi_routing_bit_for_bit(out, case):
 
 @_cached
 def _jax_train(case):
-    cfg, jcfg, params, axes, shd, _ = _jax(case)
+    cfg, jcfg, params, axes, shd, extra = _jax(case)
+    n = extra.get("batch", ranks.TRAIN_B)
     jb = {k: jnp.asarray(x) for k, x in jax_rows_batch(
         JData(vocab=cfg.vocab, seq_len=ranks.TRAIN_S,
-              global_batch=ranks.TRAIN_B), 0, 0, ranks.TRAIN_B).items()}
+              global_batch=n), 0, 0, n).items()}
     (loss, aux), grads = jax.jit(jax.value_and_grad(
         lambda p, b: jstep.loss_fn(p, axes, jcfg, shd, b),
         has_aux=True))(params, jb)
@@ -237,7 +251,7 @@ def _jax_train(case):
     fn = jax.jit(jstep.make_train_step(jcfg, axes, jt, shd))
     steps = []
     for step in range(2):
-        b = {k: jnp.asarray(x) for k, x in ranks.train_batch(cfg, step)
+        b = {k: jnp.asarray(x) for k, x in ranks.train_batch(cfg, step, n)
              .items()}
         state, m = fn(state, b)
         steps.append(m)

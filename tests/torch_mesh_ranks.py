@@ -28,6 +28,14 @@ B, S, NEW = 4, 16, 4
 TRAIN_B, TRAIN_S = 4, 32
 
 
+def replaced(cfg, over: dict):
+    """``cfg`` (either package's) with ``over`` replaced; a dict replaces
+    fields of the nested config it names (``{"ssm": {"expand": 3}}``)."""
+    return dataclasses.replace(cfg, **{
+        k: dataclasses.replace(getattr(cfg, k), **v) if isinstance(v, dict)
+        else v for k, v in over.items()})
+
+
 def config(arch: str, **over):
     """The smoke variant of ``arch`` with ``over`` replaced (an MoE routes
     with the paper's auction)."""
@@ -36,7 +44,7 @@ def config(arch: str, **over):
     if cfg.moe is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, router="flow"))
-    return dataclasses.replace(cfg, **over)
+    return replaced(cfg, over)
 
 
 # case -> (kind, mesh, arch, config overrides, extra)
@@ -73,6 +81,36 @@ CASES = {
     # (64, 1, 256), so only the state's own record tells them apart
     "resume_q_1x2": ("resume", "1x2", "smollm-135m", {},
                      {"quantize": True}),
+    # a batch of 3 rows does not split over 2 data ranks: each takes it all
+    "smollm_train_2x1_batch3": ("train", "2x1", "smollm-135m", {},
+                                {"batch": 3}),
+    # MLA (deepseek-v2's smoke variant: 4 heads, a dense first layer, then
+    # 4 routed experts and 2 shared): 2 heads a rank and S_max = 20 split
+    # over the model axis (the absorbed decode's flash-decoding combine)
+    "deepseek_serve_1x2": ("serve", "1x2", "deepseek-v2-236b", {}, {}),
+    "deepseek_serve_1x4": ("serve", "1x4", "deepseek-v2-236b", {}, {}),
+    "deepseek_serve_2x2_whole_cache": ("serve", "2x2", "deepseek-v2-236b",
+                                       {}, {"S_max": S + NEW + 1}),
+    "deepseek_train_1x2": ("train", "1x2", "deepseek-v2-236b", {}, {}),
+    # 6 heads over 4 ranks: every rank runs every head, on queries gathered
+    # from its block of wq_b's 192 columns, and its block of wo's 96 rows
+    "mla_heads_serve_1x4": ("serve", "1x4", "deepseek-v2-236b",
+                            {"n_heads": 6, "n_kv_heads": 6}, {}),
+    "mla_heads_train_1x4": ("train", "1x4", "deepseek-v2-236b",
+                            {"n_heads": 6, "n_kv_heads": 6}, {}),
+    # Mamba2 (8 heads of 32): 4 and 2 heads a rank
+    "mamba_serve_1x2": ("serve", "1x2", "mamba2-370m", {}, {}),
+    "mamba_serve_1x4": ("serve", "1x4", "mamba2-370m", {}, {}),
+    "mamba_train_1x2": ("train", "1x2", "mamba2-370m", {}, {}),
+    # 6 heads of 64 (expand 3) over 4 ranks: every rank runs every head;
+    # in_proj's 806 columns whole, the conv's 416 channels and di's 384
+    # split
+    "ssm_heads_serve_1x4": ("serve", "1x4", "mamba2-370m",
+                            {"ssm": {"head_dim": 64, "expand": 3}}, {}),
+    "ssm_heads_train_1x4": ("train", "1x4", "mamba2-370m",
+                            {"ssm": {"head_dim": 64, "expand": 3}}, {}),
+    # the hybrid: GQA, Mamba2 and the MoE on 2 x 2
+    "jamba_serve_2x2": ("serve", "2x2", "jamba-v0.1-52b", {}, {}),
     "collectives_2x2": ("collectives", "2x2", None, {}, {}),
 }
 
@@ -97,13 +135,13 @@ def prompts(vocab: int) -> np.ndarray:
                                              dtype=np.int32)
 
 
-def train_batch(cfg, step: int) -> dict:
-    """The data pipeline's rows of ``step`` (numpy)."""
+def train_batch(cfg, step: int, rows: int = TRAIN_B) -> dict:
+    """The data pipeline's ``rows`` rows of ``step`` (numpy)."""
     from repro_torch.data.pipeline import DataConfig, rows_batch
     return rows_batch(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S,
-                                 global_batch=TRAIN_B,
+                                 global_batch=rows,
                                  frontend_dim=cfg.frontend_dim),
-                      step, 0, TRAIN_B)
+                      step, 0, rows)
 
 
 def frames(cfg) -> np.ndarray:
@@ -180,8 +218,9 @@ def whole_grads(model, grads: dict) -> dict:
 def train(cfg, shd, extra) -> dict:
     from repro_torch.train import step as tstep
     model = placed(cfg, shd)
+    n = extra.get("batch", TRAIN_B)
     rows = {k: shd.batch_rows(torch.tensor(x))
-            for k, x in train_batch(cfg, 0).items()}
+            for k, x in train_batch(cfg, 0, n).items()}
     loss, aux = tstep.loss_fn(model, rows)
     ps = tstep.params_of(model)
     grads = dict(zip(ps, torch.autograd.grad(loss, list(ps.values()))))
@@ -192,7 +231,7 @@ def train(cfg, shd, extra) -> dict:
     fn = tstep.make_train_step(cfg, tcfg)
     for step in range(2):
         rows = {k: shd.batch_rows(torch.tensor(x))
-                for k, x in train_batch(cfg, step).items()}
+                for k, x in train_batch(cfg, step, n).items()}
         state, m = fn(state, rows)
         out["steps"].append({k: v.clone() for k, v in m.items()})
     return out
